@@ -6,6 +6,13 @@ decode (`models.losses.yolox.yolox_eval_decode`) and fixed-shape NMS
 (`ops.nms.postprocess`), whose suppression step runs a hand-written CUDA
 kernel (`csrc/nms_suppress.cu`).
 
+Slice 2 covers the YOLOX train step without augmentation: the SimOTA loss
+(`models.losses.yolox.yolox_loss`), whose dynamic-k runs a hand-written CUDA
+row top-k kernel (`ops.topk.topk_lastdim`, `csrc/topk_rows.cu`), train-mode
+BatchNorm with flax's running statistics, the optimizer and LR schedule
+(`train.optim.build_optimizer`), the EMA (`train.ema.ema_update`) and the
+step itself (`train.state.TrainState`, `make_train_step`, `make_eval_step`).
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

@@ -15,6 +15,12 @@ to a torch key by a rename, plus a transpose for conv kernels:
 `num_batches_tracked` (torch only) is written as 0 and dropped on the way
 back. Input is the numpy tree of `jax.device_get(model.init(...))` or the
 flat `params/...`, `batch_stats/...` keys of the exported npz.
+
+A whole JAX `TrainState` maps piece by piece: `params` + `batch_stats` to the
+trained module, `ema_params` + `ema_batch_stats` (as {"params": ...,
+"batch_stats": ...}) to the EMA module through the same functions, and the
+SGD momentum trace (optax `TraceState.trace`, a tree shaped like `params`)
+to the optimizer's `momentum_buffer`s (`load_momentum`, `momentum_to_trace`).
 """
 
 from __future__ import annotations
@@ -115,3 +121,30 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(value)
     return out
+
+
+def load_momentum(optimizer: torch.optim.Optimizer, module: nn.Module,
+                  trace: Mapping) -> None:
+    """Write a momentum trace (a tree shaped like flax `params`) into the
+    `momentum_buffer` of each of `module`'s parameters in `optimizer` (SGD).
+    Raises KeyError unless the trace names exactly the module's parameters."""
+    named = dict(module.named_parameters())
+    bufs = dict(_to_torch_key(path, value)
+                for path, value in _flatten(trace, ("params",)).items())
+    if set(bufs) != set(named):
+        raise KeyError(
+            f"momentum trace mismatch: missing {sorted(set(named) - set(bufs))}"
+            f", unmapped {sorted(set(bufs) - set(named))}")
+    for key, arr in bufs.items():
+        p = named[key]
+        optimizer.state[p]["momentum_buffer"] = torch.from_numpy(
+            np.array(arr, np.float32)).to(p.device)
+
+
+def momentum_to_trace(optimizer: torch.optim.Optimizer,
+                      module: nn.Module) -> dict:
+    """The optimizer's `momentum_buffer`s (SGD, after at least one update)
+    as a numpy tree shaped like flax `params`."""
+    bufs = {name: optimizer.state[p]["momentum_buffer"]
+            for name, p in module.named_parameters()}
+    return state_dict_to_variables(bufs)["params"]

@@ -10,7 +10,9 @@ and BatchNorm in that dtype while its parameters stay fp32, as the JAX
 package does under the model yaml's `dtype:` key. In the JAX package that
 key is ambient global state; here it is passed to each module at build time.
 
-BatchNorm uses eps=1e-3 and running-average momentum 0.03 (flax 0.97).
+BatchNorm uses eps=1e-3 and running-average momentum 0.03 (flax 0.97), and
+in train mode keeps the *biased* batch variance in `running_var`, as flax
+does (`BatchNorm2d` below).
 """
 
 from __future__ import annotations
@@ -54,9 +56,42 @@ def get_activation(name: str | None = "silu") -> Callable[[torch.Tensor], torch.
     return acts[name]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train mode keeps flax's running statistics:
+    the batch is normalised with its biased variance (as torch does), and
+    `running_var` takes that same biased variance, where torch would store
+    the unbiased one (a factor n/(n-1)). `running <- (1-momentum)*running +
+    momentum*batch`; the statistics are fp32 whatever the compute dtype.
+    Eval mode and the `state_dict` keys are the base class's."""
+
+    def __init__(self, num_features: int, eps: float, momentum: float):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        # scratch for the batch's own statistics; not part of the state_dict
+        self.register_buffer("batch_mean", torch.zeros(num_features),
+                             persistent=False)
+        self.register_buffer("batch_var", torch.ones(num_features),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 makes the fused op overwrite the scratch buffers with
+        # the batch's mean and unbiased variance
+        y = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight,
+                         self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(self.batch_mean, self.momentum)
+            # (out of place: autograd holds the op's buffers for backward)
+            self.running_var.lerp_(self.batch_var * ((n - 1) / n),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
 def _norm(norm: str | None, num_features: int) -> nn.Module | None:
     if norm == "bn":
-        return nn.BatchNorm2d(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        return BatchNorm2d(num_features, BN_EPS, BN_MOMENTUM)
     if norm in (None, "none"):
         return None
     raise ValueError(f"Unsupported norm: {norm}")
@@ -113,8 +148,16 @@ class DWConvBlock(nn.Module):
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     """2x2 space-to-depth of an NCHW tensor, channel q = px*2c + py*c + ch
-    (column parity before row parity, as the JAX package's NHWC form)."""
+    (column parity before row parity, as the JAX package's NHWC form). A
+    channels_last input (the detector's permuted NHWC images) gives a
+    channels_last output in one copy, so that the convs and BatchNorms
+    behind it stay on their channels_last kernels."""
     b, c, h, w = x.shape
+    nhwc = x.permute(0, 2, 3, 1)
+    if nhwc.is_contiguous() and not x.is_contiguous():
+        y = nhwc.reshape(b, h // 2, 2, w // 2, 2, c)  # (b, h2, py, w2, px, c)
+        y = y.permute(0, 1, 3, 4, 2, 5)               # (b, h2, w2, px, py, c)
+        return y.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
     x = x.reshape(b, c, h // 2, 2, w // 2, 2)     # (b, c, h2, py, w2, px)
     x = x.permute(0, 5, 3, 1, 2, 4)                # (b, px, py, c, h2, w2)
     return x.reshape(b, 4 * c, h // 2, w // 2)

@@ -3,7 +3,8 @@
 
 `build_model(cfg, num_classes)` composes backbone -> neck -> head from the
 YAML config sections and returns a `DetectionModel`: the torch module, its
-decode (`loss.eval_decode`), the class count and the config. Images enter
+loss and decode (`loss.train_loss`, `loss.eval_decode`), the class count and
+the config. Images enter
 as [B,H,W,3] 0-255 float and per-level maps leave as [B,H,W,5+C], the JAX
 package's layouts; the modules run NCHW in between (the permute of a
 contiguous NHWC tensor is already channels_last, so it copies nothing).
@@ -23,7 +24,7 @@ from .. import resolve_device
 from ..layers.blocks import compute_dtype
 from .backbones.cspdarknet import CSPDarkNet
 from .heads.decoupled_head import DecoupledHead
-from .losses.yolox import yolox_eval_decode
+from .losses.yolox import yolox_eval_decode, yolox_loss
 from .necks.csppafpn import CSPPAFPN
 
 
@@ -99,16 +100,19 @@ class LossSpec:
     strides: Sequence[int]
 
 
-def _yolox_train_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "the YOLOX training loss is not ported yet (ROADMAP queue A, "
-        "item 4: the YOLOX loss)")
-
-
 def _yolox_loss_spec(cfg: dict, num_classes: int) -> LossSpec:
     strides = tuple(cfg.get("stride", (8, 16, 32)))
     return LossSpec(
-        train_loss=_yolox_train_loss,
+        train_loss=functools.partial(
+            yolox_loss, num_classes=num_classes, strides=strides,
+            use_l1=bool(cfg.get("use_l1", False)),
+            # loss: {assign_chunk: N}: label-axis-chunked SimOTA, the same
+            # outputs with [B, N, A] peak temporaries
+            assign_chunk=(int(cfg["assign_chunk"])
+                          if cfg.get("assign_chunk") else None),
+            # loss: {pallas_assign: true}: the fused assignment kernel, not
+            # ported yet (yolox_loss raises)
+            pallas_assign=bool(cfg.get("pallas_assign", False))),
         eval_decode=functools.partial(yolox_eval_decode, strides=strides),
         strides=strides,
     )

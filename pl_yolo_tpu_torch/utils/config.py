@@ -1,6 +1,8 @@
 """YAML model-config loading with light schema validation.
 
-The port reads the JAX package's YAML files (`pl_yolo_tpu/configs/`) as data.
+The port's own model YAMLs live in `pl_yolo_tpu_torch/configs/model/`
+(`CONFIG_DIR`): copies of the JAX package's YOLOX-family files, which a test
+holds equal to their originals.
 """
 
 from __future__ import annotations
@@ -8,6 +10,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import yaml
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 
 def load_config(path: str | Path) -> dict:

@@ -30,7 +30,7 @@ NUM_CLASSES, SIZE = 3, 64
 
 def _tiny_cfg():
     cfg = validate_model_config(load_config(
-        ROOT / "pl_yolo_tpu/configs/model/yolox_s.yaml"))
+        ROOT / "pl_yolo_tpu_torch/configs/model/yolox_s.yaml"))
     cfg["backbone"]["channels"] = [8, 16, 32, 64, 128]
     cfg["backbone"]["depths"] = [1, 1, 1, 1]
     cfg["neck"]["channels"] = [32, 64, 128]
@@ -135,12 +135,6 @@ def test_unknown_registry_name_raises():
     cfg["neck"]["name"] = "yolov7neck"
     with pytest.raises(KeyError, match="Unknown neck 'yolov7neck'"):
         build_model(cfg, NUM_CLASSES, device="cpu")
-
-
-def test_train_loss_not_ported_yet():
-    model = build_model(_tiny_cfg(), NUM_CLASSES, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss.train_loss([], None)
 
 
 def test_build_is_seeded_and_defaults_to_cuda():
