@@ -5,9 +5,11 @@
 
 Phases (each raises on failure; the script exits 0 only if all pass):
   1. device: the card's name and power limit from nvidia-smi;
-  2. build: compile every CUDA kernel of the paths from `pl_yolo_tpu_torch/csrc`;
+  2. build: compile every CUDA kernel of the paths from `pl_yolo_tpu_torch/csrc`
+     (three: NMS suppression, row top-k, mosaic warp), all `nvcc`s at once;
   3. kernels: each kernel against its plain PyTorch version on the card (the
-     row top-k also against `torch.topk`);
+     row top-k also against `torch.topk`; the mosaic warp in bf16 and fp32
+     pools, through both entries, at B=16 640^2 and at 2x3x72x88);
   4. serving: `build_model(yolox_s.yaml, 80 classes)` from a seeded random
      init, 4 requests of [16,640,640,3] images through eval forward,
      `eval_decode` and `postprocess`, in the config's bf16 and in fp32 (TF32
@@ -23,10 +25,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   6. the loss on the card against the CPU on the training path's own fp32
      head maps (assignment equal, losses and gradients to LOSS_TOL), and the
      top-k kernel against `torch.topk` on that step's pair-IoU and cost;
-  7. times: infer+NMS and train images/s, the train step's split and device
-     profile, and each kernel's time beside its bound, its plain version's
-     time and the PyTorch library call's, with the card's name and power
-     limit.
+  7. training with augmentation: `make_train_step` with
+     `make_augment_fn(AugmentConfig(max_labels=100), out_s2d=True)` and the
+     model under `stem_input_s2d()`, from uint8 images, bf16, B=16, 640^2:
+     4 steps and one with `aug_enable=False`; finite losses, anchors
+     assigned, two mosaic-warp and two top-k launches a step; the card's
+     augmented batch against the CPU's on the same draws;
+  8. times: infer+NMS and train images/s (with and without augmentation, at
+     B=16 and B=64), the augmentation alone, the train steps' split and
+     device profiles, and each kernel's time beside its bound, its plain
+     version's time and the PyTorch library call's, with the card's name
+     and power limit.
 
 The line before the last is the `kernels` JSON record, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,6 +57,13 @@ CONFIG = ROOT / "pl_yolo_tpu_torch" / "configs" / "model" / "yolox_s.yaml"
 BATCH, SIZE, NUM_CLASSES, REQUESTS = 16, 640, 80, 4
 TRAIN_STEPS, MAX_LABELS, BOXES_PER_IMAGE, TOTAL_STEPS = 4, 50, 8, 1000
 TOPK_K = 10  # SimOTA's k, for both of a step's launches
+AUG_STEPS, AUG_MAX_LABELS = 4, 100  # the augmented steps, as bench.py's
+# the card's augmented batch vs the CPU's from the same draws and inputs:
+# the label math (3x3 products, divisions) may round differently by an ulp,
+# so a coordinate may move by ~1e-4 px; a pixel then moves by at most one
+# bf16 step (2 grey levels at 128..255) before HSV, which can double it
+AUG_LABEL_TOL = 1e-3  # px, on every label entry, with the same valid rows
+AUG_PIXEL_TOL = (8.0, 0.05)  # grey levels: max and mean |card - cpu|
 CONF, IOU, PRE_NMS_TOPK, MAX_DET = 0.01, 0.65, 1024, 300
 CONF_TRAINED = 1e-6  # for the one request served after the train steps
 # H100 SXM published peaks (NVIDIA data sheet, dense): non-tensor fp32 and HBM3
@@ -218,6 +234,124 @@ def train_labels(torch, dev, batch):
     return torch.from_numpy(labels).to(dev)
 
 
+def bench_images(torch, dev, batch, seed=0):
+    """[batch, 640, 640, 3] uint8 images drawn as `bench.py` draws them
+    (uniform 0..255), cast to uint8 as a decoded image would be."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(0, 255, (batch, SIZE, SIZE, 3)
+                                        ).astype(np.uint8)).to(dev)
+
+
+def mosaic_geometry_case(torch, g, kind, b, h, w):
+    """(tidx, ox, oy, xs, ys) of a K=4 mosaic warp in window coordinates,
+    drawn as the augmentation draws them, then bent to `kind`."""
+    perm = torch.randperm(b, generator=g)
+    tidx = torch.stack([torch.arange(b)] + [torch.roll(perm, -i)
+                                            for i in (1, 2, 3)], 1)
+    cx = torch.randint(w // 2, 3 * w // 2 + 1, (b,), generator=g)
+    cy = torch.randint(h // 2, 3 * h // 2 + 1, (b,), generator=g)
+    if kind == "centres at the window's edges":   # tiles half outside
+        cx = torch.where(torch.arange(b) % 2 == 0, w // 2, 3 * w // 2)
+        cy = torch.where(torch.arange(b) % 3 == 0, h // 2, 3 * h // 2)
+    ox = torch.stack([cx - w, cx, cx - w, cx], 1)
+    oy = torch.stack([cy - h, cy - h, cy, cy], 1)
+    scale = {"scale 0.1": 0.1, "scale 2.0": 2.0}.get(kind)
+    s = (torch.full((b, 1), scale) if scale
+         else torch.rand((b, 1), generator=g) + 0.5)
+    tx = (torch.rand((b, 1), generator=g) * 0.2 + 0.4) * w
+    ty = (torch.rand((b, 1), generator=g) * 0.2 + 0.4) * h
+    xs = (torch.arange(w)[None] - tx) / s + w
+    ys = (torch.arange(h)[None] - ty) / s + h
+    if kind == "flipped":
+        xs = xs.flip(-1)
+    if kind == "outside the window":  # left, right, inside; no row at all
+        xs = xs + torch.tensor([-2.5 * w, 0.6 * w, 0.0]).repeat(b)[:b, None]
+        ys = ys - torch.tensor([0.0, 0.0, 4.0 * h]).repeat(b)[:b, None]
+    return tidx, ox, oy, xs, ys
+
+
+def mixup_geometry_case(torch, g, kind, b, h, w):
+    """(idx, xs, ys) of a K=1 mixup warp: scale f, crop, flip."""
+    f = {"scale 0.5": 0.5, "scale 1.5": 1.5}.get(kind)
+    f = torch.full((b, 1), f) if f else torch.rand((b, 1), generator=g) + 0.5
+    xo = torch.rand((b, 1), generator=g) * torch.clamp(w * f - w, min=0)
+    yo = torch.rand((b, 1), generator=g) * torch.clamp(h * f - h, min=0)
+    xs = (torch.arange(w)[None] + xo + 0.5) / f - 0.5
+    ys = (torch.arange(h)[None] + yo + 0.5) / f - 0.5
+    if kind == "flipped":
+        xs = torch.where(torch.arange(b)[:, None] % 2 == 0, xs.flip(-1), xs)
+    if kind == "outside the window":
+        xs = xs + torch.tensor([-0.5 * w, 0.5 * w, 2.0 * w]).repeat(b)[:b, None]
+    return torch.randperm(b, generator=g), xs, ys
+
+
+MOSAIC_KINDS = ("scale 0.1", "scale 2.0", "centres at the window's edges",
+                "flipped", "outside the window")
+MIXUP_KINDS = ("scale 0.5", "scale 1.5", "flipped", "outside the window")
+
+
+def warp_cases(torch, dev):
+    """(name, entry, args, plain args) of the mosaic-warp checks on the card:
+    both entries, bf16 and fp32 pools, the main path's B=16 640^2 and an odd
+    small 2x3x72x88."""
+    from pl_yolo_tpu_torch.ops.mosaic import FILL
+    g = torch.Generator().manual_seed(13)
+    cases = []
+    for b, h, w in ((BATCH, SIZE, SIZE), (2, 72, 88)):
+        pool32 = torch.rand((b, 3, h, w), generator=g) * 255
+        for dtype in (torch.bfloat16, torch.float32):
+            pool = pool32.to(dtype).to(dev)
+            what = f"{str(dtype)[6:]} {b}x3x{h}x{w}"
+            for kind in MOSAIC_KINDS:
+                tidx, ox, oy, xs, ys = (t.to(dev) for t in mosaic_geometry_case(
+                    torch, g, kind, b, h, w))
+                cases.append((f"mosaic K=4, {kind}, {what}", "mosaic",
+                              (pool, tidx, ox, oy, xs, ys),
+                              (pool, tidx, ox, oy, xs, ys, 2 * w, 2 * h,
+                               FILL)))
+            for kind in MIXUP_KINDS:
+                idx, xs, ys = (t.to(dev) for t in mixup_geometry_case(
+                    torch, g, kind, b, h, w))
+                zeros = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+                cases.append((f"mixup K=1, {kind}, {what}", "mixup",
+                              (pool, idx, xs, ys),
+                              (pool, idx[:, None], zeros, zeros, xs, ys, w, h,
+                               0.0)))
+    return cases
+
+
+def warp_bound(torch, pool, tidx, ox, oy, xs, ys, hix, hiy):
+    """The least ms the card could take for one warp, and what bounds it:
+    the output written once plus every distinct source texel that carries a
+    non-zero weight read once, over the memory rate; ~9 fp32 operations per
+    channel per (pixel, covering tile), over the fp32 rate."""
+    from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import _taps
+    n, _, h, w = pool.shape
+    b, nk = tidx.shape
+    y0, y1, wy0, wy1, _ = _taps(ys.float(), oy, h, hiy)
+    x0, x1, wx0, wx1, _ = _taps(xs.float(), ox, w, hix)
+
+    def used(i0, i1, w0, w1, size):
+        m = torch.zeros((b, nk, size), dtype=torch.int32, device=pool.device)
+        m.scatter_add_(2, i0, (w0 != 0).int())
+        m.scatter_add_(2, i1, (w1 != 0).int())
+        return m > 0
+
+    rows, cols = used(y0, y1, wy0, wy1, h), used(x0, x1, wx0, wx1, w)
+    touched = (rows[..., :, None] & cols[..., None, :]).reshape(-1, h, w)
+    per_image = torch.zeros((n, h, w), device=pool.device).index_add_(
+        0, tidx.reshape(-1).long(), touched.float())
+    texels = int((per_image > 0).sum())
+    pairs = float((((wy0 != 0) | (wy1 != 0)).sum(-1).double()
+                   * ((wx0 != 0) | (wx1 != 0)).sum(-1).double()).sum())
+    esize = pool.element_size()
+    bound = {"bytes": (b * 3 * h * w + texels * 3) * esize / PEAK_BYTES * 1e3,
+             "operations": 9.0 * 3 * pairs / PEAK_FP32_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return bound[bound_by], bound_by, texels
+
+
 def sgd_by_hand(p0, grads, lrs, momentum):
     """SGD with momentum and no weight decay, step by step, as the optimizer
     should have moved a bias from `p0` given its recorded gradients."""
@@ -253,13 +387,18 @@ def main() -> int:
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    import torch.nn.functional as F
+    from pl_yolo_tpu_torch.data import augment
+    from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
     from pl_yolo_tpu_torch.models.detector import build_model
     from pl_yolo_tpu_torch.models.losses.yolox import (simota_assign,
                                                        yolox_decode)
     from pl_yolo_tpu_torch.ops.cuda import build
     from pl_yolo_tpu_torch.ops.cuda.nms_suppress import (nms_suppress,
                                                          suppress_plain)
+    from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp, warp_plain
     from pl_yolo_tpu_torch.ops.cuda.topk import topk_plain, topk_rows
+    from pl_yolo_tpu_torch.ops.mosaic import mosaic_sample_idx, warp_sample_idx
     from pl_yolo_tpu_torch.ops.nms import postprocess, nms_candidates
     from pl_yolo_tpu_torch.ops.topk import topk_lastdim
     from pl_yolo_tpu_torch.train.ema import ema_update
@@ -278,8 +417,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build(["nms_suppress", "topk_rows"])
-    log(f"[build] nms_suppress and topk_rows built in "
+    build.build(["nms_suppress", "topk_rows", "mosaic_warp"])
+    log(f"[build] nms_suppress, topk_rows and mosaic_warp built in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
@@ -335,6 +474,28 @@ def main() -> int:
             and bool(torch.isnan(got[1::2, 3:]).all())):
         raise AssertionError("topk_rows on rows of NaN: unexpected result")
     log("[kernel] topk_rows ends on rows of NaN (outside its contract)")
+
+    def check_warp(name, entry, args, plain_args):
+        """The kernel, through the entry the augmentation calls, against its
+        plain version; returns max |kernel - plain|."""
+        before = mosaic_warp.launches
+        got = (mosaic_sample_idx if entry == "mosaic" else warp_sample_idx)(
+            *args)
+        torch.cuda.synchronize()
+        if mosaic_warp.launches != before + 1:
+            raise AssertionError(f"{entry} did not launch the kernel on "
+                                 f"'{name}'")
+        want = warp_plain(*plain_args)
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"mosaic_warp != plain on '{name}': max abs "
+                                 f"err {err}")
+        return err
+
+    warp_err = 0.0
+    for name, entry, args, plain_args in warp_cases(torch, dev):
+        warp_err = max(warp_err, check_warp(name, entry, args, plain_args))
+        log(f"[kernel] mosaic_warp == plain (bit for bit) on {name}")
 
     # 4. the serving path
     cfg = validate_model_config(load_config(CONFIG), str(CONFIG))
@@ -570,7 +731,79 @@ def main() -> int:
     log(f"[kernel] topk_rows == plain == torch.topk on the training path's "
         f"pair_iou and -cost {tuple(cost.shape)}")
 
-    # 7. times
+    # 7. training with augmentation, wired as bench.py wires it
+    note("training with augmentation")
+    aug_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS)
+    aug_images = bench_images(torch, dev, BATCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = augment.sample_draws(gen, BATCH, (SIZE, SIZE), aug_cfg)
+    card_img, card_lab = augment.device_augment(draws, aug_images, labels,
+                                                aug_cfg, out_s2d=True)
+    cpu_img, cpu_lab = augment.device_augment(
+        draws.to("cpu"), aug_images.cpu(), labels.cpu(), aug_cfg,
+        out_s2d=True)
+    if (tuple(card_img.shape) != (BATCH, SIZE // 2, SIZE // 2, 12)
+            or card_img.dtype != torch.bfloat16
+            or tuple(card_lab.shape) != (BATCH, AUG_MAX_LABELS, 5)):
+        raise AssertionError(f"augmented batch: {card_img.dtype} "
+                             f"{tuple(card_img.shape)}, {tuple(card_lab.shape)}")
+    card_lab = card_lab.cpu()
+    lab_err = float((card_lab - cpu_lab).abs().max())
+    same_rows = torch.equal(card_lab.abs().sum(-1) > 0,
+                            cpu_lab.abs().sum(-1) > 0)
+    pix = (card_img.float().cpu() - cpu_img.float()).abs()
+    log(f"[augment] card vs CPU on the same draws, B={BATCH} {SIZE}^2 uint8 "
+        f"in, s2d bf16 out: labels max abs err {lab_err:.3e} px (tolerance "
+        f"{AUG_LABEL_TOL}), valid rows equal {same_rows} "
+        f"({int((cpu_lab.abs().sum(-1) > 0).sum())} boxes); pixels max "
+        f"{float(pix.max()):.3f}, mean {float(pix.mean()):.3e} grey levels "
+        f"(tolerance {AUG_PIXEL_TOL})")
+    if not (lab_err <= AUG_LABEL_TOL and same_rows
+            and float(pix.max()) <= AUG_PIXEL_TOL[0]
+            and float(pix.mean()) <= AUG_PIXEL_TOL[1]):
+        raise AssertionError("the card's augmentation != the CPU's")
+    del cpu_img, pix
+
+    def s2d_apply(module, x):
+        with stem_input_s2d():
+            return module(x)
+
+    model = models["bfloat16"]
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                   total_steps=TOTAL_STEPS)
+    state = TrainState.create(model.module, optimizer)
+    aug_step = make_train_step(
+        model.loss.train_loss, apply_fn=s2d_apply,
+        augment_fn=augment.make_augment_fn(aug_cfg, out_s2d=True))
+    history = []
+    nms_suppress.launches = topk_rows.launches = mosaic_warp.launches = 0
+    for n in range(AUG_STEPS + 1):
+        before = (mosaic_warp.launches, topk_rows.launches)
+        history.append(aug_step(state, aug_images, labels, generator=gen,
+                                aug_enable=n < AUG_STEPS))
+        per_step = (mosaic_warp.launches - before[0],
+                    topk_rows.launches - before[1])
+        if per_step != (2, 2):
+            raise AssertionError(f"augmented step {n}: {per_step} mosaic-warp "
+                                 f"and top-k launches, not (2, 2)")
+    torch.cuda.synchronize()
+    warp_launches = mosaic_warp.launches
+    if warp_launches == 0 or topk_rows.launches == 0:
+        raise AssertionError("the augmented path launched no kernel")
+    for n, losses in enumerate(history):
+        for k, v in losses.items():
+            if v.requires_grad or not bool(torch.isfinite(v)):
+                raise AssertionError(f"augmented step {n}: bad {k} {v}")
+        if not float(losses["proportion"]) > 0:
+            raise AssertionError(f"augmented step {n}: no anchor assigned")
+    log(f"[training] bf16 with augmentation: {AUG_STEPS} steps of {BATCH}x"
+        f"{SIZE}x{SIZE} uint8 through device_augment(out_s2d=True) and the "
+        f"s2d stem, then 1 with aug_enable=False: loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in history)
+        + f"; proportion {float(history[-2]['proportion']):.2f}; launches "
+        f"mosaic_warp {warp_launches}, topk_rows {topk_rows.launches}")
+
+    # 8. times
     note("times: serving")
     torch.backends.cudnn.benchmark = True
     with torch.inference_mode():
@@ -689,10 +922,63 @@ def main() -> int:
         f"ms/step, {images64.shape[0] * 1000.0 / step64_ms:.1f} images/s, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB on {card}")
-    del images64, labels64
-    last = step(state, images, labels)
-    if not all(bool(torch.isfinite(v)) for v in last.values()):
-        raise AssertionError(f"non-finite losses after the timed steps: {last}")
+
+    # the same step with augmentation, as bench.py runs it, from uint8
+    note("times: augmentation and the augmented step")
+    aug_fn = augment.make_augment_fn(aug_cfg, out_s2d=True)
+    aug_step = make_train_step(loss_fn, augment_fn=aug_fn, apply_fn=s2d_apply)
+    aug_ms = cuda_ms(torch, lambda: aug_fn(gen, aug_images, labels), iters=20)
+    aug_step_ms = cuda_ms(torch, lambda: aug_step(
+        state, aug_images, labels, generator=gen), iters=10)
+    torch.cuda.reset_peak_memory_stats()
+    aug_images64 = bench_images(torch, dev, images64.shape[0], seed=1)
+    aug_step64_ms = cuda_ms(torch, lambda: aug_step(
+        state, aug_images64, labels64, generator=gen), iters=5, warmup=2)
+    aug_peak = torch.cuda.max_memory_allocated() / 2**30
+    aug_busy_ms, aug_top = device_profile(torch, lambda: aug_step(
+        state, aug_images, labels, generator=gen), 3)
+    # the split: the same step fed the batch augmented beforehand (the s2d
+    # layout, 100 label slots), and the augmentation's own device time
+    pre_img, pre_lab = aug_fn(gen, aug_images, labels)
+    pre_step = make_train_step(loss_fn, apply_fn=s2d_apply)
+    pre_step_ms = cuda_ms(torch, lambda: pre_step(state, pre_img, pre_lab),
+                          iters=10)
+    # and the un-augmented step with its labels padded to as many slots
+    labels_wide = torch.cat([labels, labels.new_zeros(
+        (BATCH, AUG_MAX_LABELS - MAX_LABELS, 5))], dim=1)
+    wide_step_ms = cuda_ms(torch, lambda: step(state, images, labels_wide),
+                           iters=10)
+    aug_alone_busy_ms, aug_alone_top = device_profile(
+        torch, lambda: aug_fn(gen, aug_images, labels), 5, 10)
+    del pre_img, pre_lab
+    del images64, labels64, aug_images64
+    log(f"[profile] device busy {aug_busy_ms:.3f} ms of {aug_step_ms:.3f} ms "
+        f"per augmented train step (idle share "
+        f"{1.0 - aug_busy_ms / aug_step_ms:.3f}); top kernels, ms per step:")
+    for name, ms in aug_top:
+        log(f"[profile]   {ms:9.4f}  {name[:110]}")
+    log(f"[profile] augmentation alone: device busy {aug_alone_busy_ms:.3f} "
+        f"ms of {aug_ms:.3f} ms per batch; top kernels, ms per batch:")
+    for name, ms in aug_alone_top:
+        log(f"[profile]   {ms:9.4f}  {name[:110]}")
+    log(f"[time] augmentation alone (device_augment, out_s2d, uint8 in) B="
+        f"{BATCH}: {aug_ms:.3f} ms/batch; the train step on the batch "
+        f"augmented beforehand (s2d, {AUG_MAX_LABELS} label slots) "
+        f"{pre_step_ms:.3f} ms/step; the un-augmented step with its labels "
+        f"padded to {AUG_MAX_LABELS} slots {wide_step_ms:.3f} ms/step on "
+        f"{card}")
+    for b, ms, plain in ((BATCH, aug_step_ms, step_ms),
+                         (4 * BATCH, aug_step64_ms, step64_ms)):
+        log(f"[time] augmented train step bf16 B={b}: {ms:.3f} ms/step, "
+            f"{b * 1000.0 / ms:.1f} images/s; un-augmented in this call "
+            f"{plain:.3f} ms/step, {b * 1000.0 / plain:.1f} images/s"
+            + (f"; peak device memory {aug_peak:.2f} GiB" if b > BATCH
+               else "") + f" on {card}")
+    for last in (step(state, images, labels),
+                 aug_step(state, aug_images, labels, generator=gen)):
+        if not all(bool(torch.isfinite(v)) for v in last.values()):
+            raise AssertionError(f"non-finite losses after the timed steps: "
+                                 f"{last}")
 
     def topk_record(x):
         rows, a = x.shape[0] * x.shape[1], x.shape[2]
@@ -731,6 +1017,72 @@ def main() -> int:
     def mean(key):
         return sum(topk_recs[name][key] for name, _ in topk_inputs) / 2
 
+    # the mosaic warp on the augmented step's own two calls, recorded as the
+    # augmentation makes them
+    note("times: mosaic_warp")
+    from pl_yolo_tpu_torch.ops import mosaic as mosaic_module
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return mosaic_warp(*args, **kw)
+
+    mosaic_module.mosaic_warp = recording
+    try:
+        aug_fn(gen, aug_images, labels)
+    finally:
+        mosaic_module.mosaic_warp = mosaic_warp
+    warp_recs = {}
+    for what, (args, kw) in zip(("mosaic (K=4)", "mixup (K=1)"), calls):
+        got, want = mosaic_warp(*args, **kw), warp_plain(*args, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mosaic_warp != plain on the step's {what}")
+        warp_err = max(warp_err, float((got.float() - want.float()).abs().max()))
+        bound_ms, bound_by, texels = warp_bound(torch, *args, kw["hix"],
+                                                kw["hiy"])
+        _, kernels = device_profile(torch, lambda: mosaic_warp(*args, **kw),
+                                    20, 5)
+        warp_recs[what] = dict(
+            ms=cuda_ms(torch, lambda: mosaic_warp(*args, **kw), iters=50),
+            device_ms=next((ms for name, ms in kernels
+                            if "mosaic_warp_kernel" in name), None),
+            plain_ms=cuda_ms(torch, lambda: warp_plain(*args, **kw), iters=10),
+            bound_ms=bound_ms, bound_by=bound_by, texels=texels)
+    # the library yardstick: grid_sample over the same [B,3,H,W] output with
+    # the K=1 warp's grid (the same sampling but for the partial blend at
+    # the edge); the port never calls it. In fp32: grid_sample takes a grid
+    # of its input's dtype, and a bf16 grid cannot address 640 columns to
+    # within a pixel.
+    pool, idx, _, _, xs, ys = calls[1][0]
+    source = pool[idx[:, 0].long()].float()
+    grid = torch.stack([
+        (xs * (2.0 / (SIZE - 1)) - 1.0)[:, None, :].expand(-1, SIZE, -1),
+        (ys * (2.0 / (SIZE - 1)) - 1.0)[:, :, None].expand(-1, -1, SIZE)],
+        dim=-1)
+
+    def library():
+        return F.grid_sample(source, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    grid_ms = cuda_ms(torch, library, iters=50)
+    same = float(((library() - warp_plain(source, torch.arange(
+        BATCH, device=dev)[:, None], *calls[1][0][2:], **calls[1][1])
+        ).abs() <= 1e-2).float().mean())
+    for what, r in warp_recs.items():
+        device_us = ("not measured" if r["device_ms"] is None
+                     else f"{r['device_ms'] * 1e3:.2f} us")
+        log(f"[time] mosaic_warp on the step's {what} [{BATCH},3,{SIZE},"
+            f"{SIZE}] bf16: {r['ms'] * 1e3:.2f} us a call ({device_us} of "
+            f"device time in the profiler), plain {r['plain_ms'] * 1e3:.2f} "
+            f"us, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}: "
+            f"{r['texels']} distinct source texels) on {card}")
+    log(f"[time] grid_sample (bilinear, zeros, align_corners, fp32) on the "
+        f"mixup call's grid: {grid_ms * 1e3:.2f} us ({same:.4f} of its "
+        f"values within 1e-2 of the fp32 K=1 warp's) on {card}")
+
+    def warp_mean(key):
+        return sum(r[key] for r in warp_recs.values()) / len(warp_recs)
+
     log(card)
     log(json.dumps({"kernels": [{
         "name": "nms_suppress", "route": "cuda",
@@ -747,7 +1099,15 @@ def main() -> int:
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": topk_recs["-cost"]["bound_ms"],
         "bound_by": topk_recs["-cost"]["bound_by"],
-        "library_ms": mean("library_ms")}]}))
+        "library_ms": mean("library_ms")}, {
+        "name": "mosaic_warp", "route": "cuda",
+        "source": "pl_yolo_tpu_torch/csrc/mosaic_warp.cu",
+        "replaces": "pl_yolo_tpu/ops/pallas/mosaic_pallas.py:71",
+        "launches": warp_launches, "max_abs_err": warp_err,
+        "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
+        "bound_ms": warp_mean("bound_ms"),
+        "bound_by": warp_recs["mosaic (K=4)"]["bound_by"],
+        "library_ms": grid_ms}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

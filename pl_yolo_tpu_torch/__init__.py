@@ -13,6 +13,13 @@ BatchNorm with flax's running statistics, the optimizer and LR schedule
 (`train.optim.build_optimizer`), the EMA (`train.ema.ema_update`) and the
 step itself (`train.state.TrainState`, `make_train_step`, `make_eval_step`).
 
+Slice 3 covers the device augmentation the train step runs
+(`data.augment.device_augment`, `make_augment_fn`: mosaic, mixup, HSV and
+flip on the batch, from random numbers drawn up front by `sample_draws`),
+whose mosaic and mixup sampling runs a hand-written CUDA warp kernel
+(`ops.mosaic`, `csrc/mosaic_warp.cu`), and the Focus stem fed its
+space-to-depth output (`layers.blocks.stem_input_s2d`).
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

@@ -163,6 +163,33 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, 4 * c, h // 2, w // 2)
 
 
+# "The stem input is already space-to-depth'ed": `data.augment.
+# device_augment(out_s2d=True)` emits the Focus stem's [B,H/2,W/2,4c] layout
+# straight from its channel-major pool. Consumed by the first Focus called
+# inside the context, so that only the stem skips its own space_to_depth
+# (the JAX package's ambient flag, resolved there at trace time).
+_PENDING_S2D_INPUT = [False]
+
+
+class stem_input_s2d:
+    """Context manager: the next Focus call inside receives pre-s2d input."""
+
+    def __enter__(self):
+        self._prev = _PENDING_S2D_INPUT[0]
+        _PENDING_S2D_INPUT[0] = True
+        return self
+
+    def __exit__(self, *exc):
+        _PENDING_S2D_INPUT[0] = self._prev
+        return False
+
+
+def _take_stem_s2d() -> bool:
+    v = _PENDING_S2D_INPUT[0]
+    _PENDING_S2D_INPUT[0] = False
+    return v
+
+
 def focus_kernel_6x6(weight: torch.Tensor) -> torch.Tensor:
     """[o, 4c, 3, 3] s2d+3x3 kernel -> the equivalent [o, c, 6, 6] kernel of
     a stride-2, pad-2 conv on the raw input: W6[o, ch, 2ky+py, 2kx+px] =
@@ -177,7 +204,10 @@ def focus_kernel_6x6(weight: torch.Tensor) -> torch.Tensor:
 class Focus(nn.Module):
     """Space-to-depth stem on one param tree (`conv.conv.weight`, 3x3x4c).
 
-    With `fused=True` and (ksize=3, stride=1), eval mode runs the exact
+    Under `stem_input_s2d()` the input already has the space_to_depth
+    layout and only the 3x3 ConvBlock runs, in train and eval mode alike
+    (a bf16 input is widened for an fp32 block). Otherwise, with
+    `fused=True` and (ksize=3, stride=1), eval mode runs the exact
     6x6-stride-2 reparameterization on the raw input; train mode, and
     `fused=False`, run space_to_depth then the 3x3 ConvBlock."""
 
@@ -191,6 +221,9 @@ class Focus(nn.Module):
         self.fused = fused and ksize == 3 and stride == 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _take_stem_s2d():
+            blk = self.conv
+            return blk(x.to(blk.dtype or blk.conv.weight.dtype))
         if self.fused and not self.training:
             blk = self.conv
             w6 = focus_kernel_6x6(blk.conv.weight)

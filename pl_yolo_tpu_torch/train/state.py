@@ -63,27 +63,34 @@ def make_train_step(
     use_ema: bool = True,
     augment_fn: Callable | None = None,
     sanitize: bool = False,
+    apply_fn: Callable | None = None,
 ) -> Callable:
     """Build the train step.
 
     loss_fn(head_outputs, labels[, use_l1=]) -> dict with 'loss' + metrics
     augment_fn(generator, images, labels[, enable=]) -> (images, labels)
+    apply_fn(module, images) -> head outputs; default `module(images)`
 
     The returned `step(state, images, labels, generator=None,
     aug_enable=None, use_l1=None) -> losses` does, in this order: the
     optional augmentation, the train-mode forward (BatchNorm statistics
     move), the loss, the backward pass, the optimizer update, step += 1, and
     the EMA of params and BN stats at the new step count. `images` are
-    [B,H,W,3] in 0-255, float or uint8. `aug_enable` and `use_l1` are the
+    [B,H,W,3] in 0-255, float or uint8, or whatever `augment_fn` hands to
+    `apply_fn` (`data.augment.make_augment_fn(cfg, out_s2d=True)` gives the
+    stem's space_to_depth layout, for an `apply_fn` that calls the module
+    under `layers.blocks.stem_input_s2d()`). `aug_enable` and `use_l1` are the
     flags of the epoch-gated no-aug schedule (bools or 0/1 tensors), handed
     to `augment_fn`/`loss_fn` only when those accept them. `generator` seeds
     the augmentation. With `sanitize`, the losses also carry `grad_norm`
     (global) and `nonfinite_grads` (element count). The returned losses are
-    detached tensors on the device; the step forces no host sync.
+    detached tensors on the device; the step forces no host sync of its
+    own (the mosaic warp reads its tile indices back to check them).
 
-    The JAX step's `apply_fn` has no counterpart (the state holds the
-    module), nor have `donate`, `constrain_images` and `constrain_state`,
-    which steer jit buffer donation and GSPMD sharding."""
+    `apply_fn` is the JAX step's, with the module in place of the
+    variables (the state holds the module, in train mode). `donate`,
+    `constrain_images` and `constrain_state`, which steer jit buffer
+    donation and GSPMD sharding, have no counterpart."""
     aug_takes_enable = augment_fn is not None and _accepts(augment_fn, "enable")
     loss_takes_l1 = _accepts(loss_fn, "use_l1")
 
@@ -102,7 +109,9 @@ def make_train_step(
         if not images.is_floating_point():
             images = images.to(torch.float32)
 
-        outputs = module.train()(images)
+        module.train()
+        outputs = module(images) if apply_fn is None else apply_fn(module,
+                                                                   images)
         if loss_takes_l1 and use_l1 is not None:
             losses = loss_fn(outputs, labels, use_l1=use_l1)
         else:
