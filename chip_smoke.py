@@ -6,10 +6,12 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
   1. device: the card's name and power limit from nvidia-smi;
   2. build: compile every CUDA kernel of the paths from `pl_yolo_tpu_torch/csrc`
-     (three: NMS suppression, row top-k, mosaic warp), all `nvcc`s at once;
+     (four: NMS suppression, row top-k, mosaic warp, fused SimOTA
+     assignment), all `nvcc`s at once;
   3. kernels: each kernel against its plain PyTorch version on the card (the
      row top-k also against `torch.topk`; the mosaic warp in bf16 and fp32
-     pools, through both entries, at B=16 640^2 and at 2x3x72x88);
+     pools, through both entries, at B=16 640^2 and at 2x3x72x88; the
+     SimOTA assignment on 9 synthetic cases, NaN logits among them);
   4. serving: `build_model(yolox_s.yaml, 80 classes)` from a seeded random
      init, 4 requests of [16,640,640,3] images through eval forward,
      `eval_decode` and `postprocess`, in the config's bf16 and in fp32 (TF32
@@ -31,11 +33,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      4 steps and one with `aug_enable=False`; finite losses, anchors
      assigned, two mosaic-warp and two top-k launches a step; the card's
      augmented batch against the CPU's on the same draws;
-  8. times: infer+NMS and train images/s (with and without augmentation, at
-     B=16 and B=64), the augmentation alone, the train steps' split and
-     device profiles, and each kernel's time beside its bound, its plain
-     version's time and the PyTorch library call's, with the card's name
-     and power limit.
+  8. training with `loss: {pallas_assign: true}` (the fused assignment
+     kernel): 4 bf16 steps as in phase 5 and 4+1 augmented steps as in phase
+     7; finite losses, anchors assigned, one fused-assignment launch and no
+     top-k launch a step; the kernel against its plain version and against
+     the dense SimOTA on those steps' own inputs (M=50 and M=100), and the
+     loss through it against the dense loss on phase 6's fp32 maps;
+  9. times: infer+NMS and train images/s (with and without augmentation, at
+     B=16 and B=64), the augmented step with the fused against the dense
+     assignment (interleaved, with each variant's device busy time), the
+     assignment alone (fused, dense, chunked), the augmentation alone, the
+     train steps' split and device profiles, and each kernel's time beside
+     its bound, its plain version's time and the PyTorch library call's,
+     with the card's name and power limit.
 
 The line before the last is the `kernels` JSON record, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -76,6 +86,15 @@ MAPS_TOL = 1e-3  # on max |card - cpu| / max(1, max |cpu|)
 # the loss on the card vs the CPU from the same fp32 head maps: the same
 # formulas, sums over 8400 anchors in another order, exp/log of two libraries
 LOSS_TOL = 1e-5  # relative, on each loss entry and on max |grad| per map
+# the fused SimOTA kernel vs the dense path on the same inputs: S and the
+# top-10 IoU sum are added in another order, which can flip an exact tie
+# (the JAX package's own bound for its fused kernel, tests/test_simota_pallas)
+SIMOTA_FG_AGREE = 0.999
+# fp32 operations the assignment needs, counted from the formulas with a
+# transcendental as one: per (anchor, class) term of S (sigmoid 4, product,
+# sqrt, clip 2, log1p and its negation, sum: 11); per (valid label, anchor)
+# pair (gates 20, IoU 13, cls cost 13, IoU cost 5, penalties 2, ranking 2)
+SIMOTA_OPS_PER_CLASS_TERM, SIMOTA_OPS_PER_PAIR = 11, 55
 # a bias after 4 SGD steps vs the same steps redone by hand from its
 # recorded gradients: fp32 rounding of a few multiply-adds
 UPDATE_TOL = 1e-5  # on max |change - by hand| / max |change|
@@ -352,6 +371,103 @@ def warp_bound(torch, pool, tidx, ox, oy, xs, ys, hix, hiy):
     return bound[bound_by], bound_by, texels
 
 
+def anchor_grid(torch, size, strides):
+    """x_shifts, y_shifts, strides [A] of a `size`^2 input, as the YOLOX
+    decode lays them out (level-major, 'ij' within a level)."""
+    xs, ys, ss = [], [], []
+    for s in strides:
+        g = size // s
+        gy, gx = torch.meshgrid(torch.arange(g), torch.arange(g),
+                                indexing="ij")
+        xs.append(gx.reshape(-1))
+        ys.append(gy.reshape(-1))
+        ss.append(torch.full((g * g,), s))
+    return tuple(torch.cat(t).float() for t in (xs, ys, ss))
+
+
+def simota_case(torch, g, dev, b, m, c, size, strides=(8, 16, 32),
+                n_valid=None, kind="random"):
+    """One synthetic SimOTA input: labels [B,M,4] (the first n valid slots
+    an image, n random in [1, M) unless `n_valid`), classes, validity, and
+    predictions as the loss hands them over: slices of one [B,A,5+C]
+    tensor, predicted boxes near their anchors."""
+    xs, ys, st = anchor_grid(torch, size, strides)
+    a = xs.shape[0]
+    n = (torch.randint(1, m, (b,), generator=g) if n_valid is None
+         else torch.full((b,), n_valid))
+    valid = torch.arange(m)[None, :] < n[:, None]
+    boxes = torch.cat([torch.rand((b, m, 2), generator=g) * (size - 20) + 10,
+                       torch.rand((b, m, 2), generator=g) * 0.4 * size + 8],
+                      -1)
+    classes = torch.randint(0, c, (b, m), generator=g)
+    preds = torch.empty((b, a, 5 + c))
+    preds[..., 0] = (xs + torch.rand((b, a), generator=g) * 2 - 1) * st
+    preds[..., 1] = (ys + torch.rand((b, a), generator=g) * 2 - 1) * st
+    preds[..., 2:4] = torch.rand((b, a, 2), generator=g) * 10 * st[:, None] + 4
+    preds[..., 4:] = torch.randn((b, a, 1 + c), generator=g) * 2 - 2
+    if kind == "no valid label in one image":
+        valid[1] = False
+    elif kind == "labels at the image edge":
+        boxes[..., 0] = torch.where(torch.rand((b, m), generator=g) < 0.5,
+                                    0.0, float(size))
+        boxes[..., 1] = torch.rand((b, m), generator=g) * size
+    elif kind == "class index out of range":
+        classes[:, ::3] = -3
+        classes[:, 1::3] = c + 5
+    elif kind == "ties: repeated identical predictions":
+        preds[...] = preds[:1, :1]           # one box and one logit row
+        boxes[:, 1::2] = boxes[:, ::2][:, :boxes[:, 1::2].shape[1]]
+    elif kind == "NaN logits":
+        preds[:, ::7, 5] = float("nan")      # a class logit of every 7th
+        preds[0, 100:130, 4] = float("nan")  # anchor; obj of 30 anchors
+    boxes, classes, valid, preds, xs, ys, st = (
+        t.to(dev) for t in (boxes * valid[..., None], classes, valid, preds,
+                            xs, ys, st))
+    return (boxes, classes, valid, preds[..., :4], preds[..., 4],
+            preds[..., 5:], xs, ys, st)
+
+
+def simota_cases(torch, dev):
+    """(name, args) of the fused-assignment checks on the card."""
+    g = torch.Generator().manual_seed(17)
+    cases = []
+    for b, m, c, size, strides, kind in (
+            (BATCH, AUG_MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32), "random"),
+            (BATCH, MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32), "random"),
+            (2, 13, 7, 128, (8, 16), "random"),
+            (4, 13, NUM_CLASSES, SIZE, (8, 16, 32), "random"),
+            (3, 50, 7, 128, (8, 16), "no valid label in one image"),
+            (4, AUG_MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32),
+             "labels at the image edge"),
+            (2, 13, 7, 128, (8, 16), "class index out of range"),
+            (4, MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32),
+             "ties: repeated identical predictions"),
+            (4, 13, NUM_CLASSES, SIZE, (8, 16, 32), "NaN logits")):
+        args = simota_case(torch, g, dev, b, m, c, size, strides, kind=kind)
+        cases.append((f"{kind}, B={b} M={m} A={args[6].shape[0]} C={c}",
+                      args))
+    return cases
+
+
+def simota_bound(args):
+    """The least ms the card could take for one fused assignment, and what
+    bounds it: every input read once and the outputs (bool, int64, fp32)
+    written once, over the memory rate; the operations these inputs need
+    (the C class terms of every anchor, and every pair of a valid label and
+    an anchor once), over the fp32 rate."""
+    gt, _, valid, _, _, cls, _, _, _ = args
+    b, m = valid.shape
+    a, c = cls.shape[1:]
+    nbytes = (b * m * (4 * 4 + 8 + 1) + b * a * (4 * 4 + 4 + c * 4)
+              + 3 * a * 4 + b * a * (1 + 8 + 4))
+    ops = (SIMOTA_OPS_PER_CLASS_TERM * b * a * c
+           + SIMOTA_OPS_PER_PAIR * int(valid.sum()) * a)
+    bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "operations": ops / PEAK_FP32_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return bound[bound_by], bound_by
+
+
 def sgd_by_hand(p0, grads, lrs, momentum):
     """SGD with momentum and no weight decay, step by step, as the optimizer
     should have moved a bias from `p0` given its recorded gradients."""
@@ -397,6 +513,8 @@ def main() -> int:
     from pl_yolo_tpu_torch.ops.cuda.nms_suppress import (nms_suppress,
                                                          suppress_plain)
     from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp, warp_plain
+    from pl_yolo_tpu_torch.ops.cuda.simota import (simota_fused,
+                                                   simota_fused_plain)
     from pl_yolo_tpu_torch.ops.cuda.topk import topk_plain, topk_rows
     from pl_yolo_tpu_torch.ops.mosaic import mosaic_sample_idx, warp_sample_idx
     from pl_yolo_tpu_torch.ops.nms import postprocess, nms_candidates
@@ -417,9 +535,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build(["nms_suppress", "topk_rows", "mosaic_warp"])
-    log(f"[build] nms_suppress, topk_rows and mosaic_warp built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    build.build(["nms_suppress", "topk_rows", "mosaic_warp", "simota_assign"])
+    log(f"[build] nms_suppress, topk_rows, mosaic_warp and simota_assign "
+        f"built in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     max_err = 0
@@ -497,6 +615,35 @@ def main() -> int:
         warp_err = max(warp_err, check_warp(name, entry, args, plain_args))
         log(f"[kernel] mosaic_warp == plain (bit for bit) on {name}")
 
+    def check_simota(name, args):
+        """The kernel against its plain version: fg and matched equal,
+        pred_iou equal bit for bit; returns (outputs, max |kernel - plain|
+        over the three outputs)."""
+        before = simota_fused.launches
+        got = simota_fused(*args)
+        torch.cuda.synchronize()  # a run that does not end stops here
+        if simota_fused.launches != before + 1:
+            raise AssertionError(f"simota_fused did not launch the kernel on "
+                                 f"'{name}'")
+        want = simota_fused_plain(*args)
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        if not all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in zip(got, want)):
+            raise AssertionError(
+                f"simota_assign != plain on '{name}': fg differs at "
+                f"{int((got[0] != want[0]).sum())} anchors, matched at "
+                f"{int((got[1] != want[1]).sum())}, max abs err {err}")
+        return got, err
+
+    simota_err = 0.0
+    synthetic = simota_cases(torch, dev)
+    for name, args in synthetic:
+        got, err = check_simota(name, args)
+        simota_err = max(simota_err, err)
+        log(f"[kernel] simota_assign == plain (fg, matched, pred_iou bit for "
+            f"bit) on {name}: {int(got[0].sum())} foreground anchors")
+
     # 4. the serving path
     cfg = validate_model_config(load_config(CONFIG), str(CONFIG))
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -537,7 +684,8 @@ def main() -> int:
                     f"{what}: card postprocess != CPU postprocess ({field})")
 
     outputs = []
-    nms_suppress.launches = topk_rows.launches = 0
+    nms_suppress.launches = topk_rows.launches = mosaic_warp.launches = 0
+    simota_fused.launches = 0
     with torch.inference_mode():
         for precision, model in models.items():
             for x in requests:
@@ -591,7 +739,8 @@ def main() -> int:
     labels = train_labels(torch, dev, BATCH)
     momentum = float(cfg["optimizer"]["momentum"])
     states = {}
-    nms_suppress.launches = topk_rows.launches = 0
+    nms_suppress.launches = topk_rows.launches = mosaic_warp.launches = 0
+    simota_fused.launches = 0
     for precision, model in models.items():
         module = model.module
         optimizer, schedule = build_optimizer(module, cfg["optimizer"],
@@ -777,6 +926,7 @@ def main() -> int:
         augment_fn=augment.make_augment_fn(aug_cfg, out_s2d=True))
     history = []
     nms_suppress.launches = topk_rows.launches = mosaic_warp.launches = 0
+    simota_fused.launches = 0
     for n in range(AUG_STEPS + 1):
         before = (mosaic_warp.launches, topk_rows.launches)
         history.append(aug_step(state, aug_images, labels, generator=gen,
@@ -802,8 +952,137 @@ def main() -> int:
         + " ".join(f"{float(h['loss']):.4f}" for h in history)
         + f"; proportion {float(history[-2]['proportion']):.2f}; launches "
         f"mosaic_warp {warp_launches}, topk_rows {topk_rows.launches}")
+    if simota_fused.launches != 0:
+        raise AssertionError("the dense-assignment paths launched the fused "
+                             "assignment kernel")
 
-    # 8. times
+    # 8. training with loss: {pallas_assign: true}: the fused assignment
+    # kernel in place of the dense SimOTA and its two top-k launches
+    note("training with the fused assignment")
+    from pl_yolo_tpu_torch.ops import simota as simota_module
+    fused_cfg = copy.deepcopy(cfg)
+    fused_cfg["loss"]["pallas_assign"] = True
+    fused_model = build_model(fused_cfg, NUM_CLASSES, seed=0)
+    fused_loss = fused_model.loss.train_loss
+    optimizer, _ = build_optimizer(fused_model.module, cfg["optimizer"],
+                                   total_steps=TOTAL_STEPS)
+    state = TrainState.create(fused_model.module, optimizer)
+    fused_step = make_train_step(fused_loss)
+    fused_aug_step = make_train_step(
+        fused_loss, apply_fn=s2d_apply,
+        augment_fn=augment.make_augment_fn(aug_cfg, out_s2d=True))
+    simota_calls = []  # the kernel's inputs as the loss hands them over
+
+    def recording(*args, **kw):
+        simota_calls.append(args)
+        return simota_fused(*args, **kw)
+
+    history = []
+    simota_module.simota_fused = recording
+    nms_suppress.launches = topk_rows.launches = mosaic_warp.launches = 0
+    simota_fused.launches = 0
+    try:
+        for n in range(TRAIN_STEPS + AUG_STEPS + 1):
+            counts = (simota_fused.launches, topk_rows.launches,
+                      mosaic_warp.launches)
+            if n < TRAIN_STEPS:
+                history.append(fused_step(state, images, labels))
+            else:
+                history.append(fused_aug_step(
+                    state, aug_images, labels, generator=gen,
+                    aug_enable=n < TRAIN_STEPS + AUG_STEPS))
+            per_step = (simota_fused.launches - counts[0],
+                        topk_rows.launches - counts[1],
+                        mosaic_warp.launches - counts[2])
+            want = (1, 0, 2 if n >= TRAIN_STEPS else 0)
+            if per_step != want:
+                raise AssertionError(
+                    f"fused-assignment step {n}: {per_step} simota_assign, "
+                    f"top-k and mosaic-warp launches, not {want}")
+    finally:
+        simota_module.simota_fused = simota_fused
+    torch.cuda.synchronize()
+    simota_launches = simota_fused.launches
+    if simota_launches == 0 or topk_rows.launches != 0 \
+            or nms_suppress.launches != 0:
+        raise AssertionError("the fused-assignment path launched the wrong "
+                             "kernels")
+    for n, losses in enumerate(history):
+        for k, v in losses.items():
+            if v.requires_grad or not bool(torch.isfinite(v)):
+                raise AssertionError(f"fused-assignment step {n}: bad {k} {v}")
+        if not float(losses["proportion"]) > 0:
+            raise AssertionError(f"fused-assignment step {n}: no anchor "
+                                 f"assigned")
+    for k, v in fused_model.module.state_dict().items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"fused-assignment path: non-finite {k}")
+    log(f"[training] bf16 with loss: {{pallas_assign: true}}: {TRAIN_STEPS} "
+        f"steps of {BATCH}x{SIZE}x{SIZE} as in phase 5, then {AUG_STEPS}+1 "
+        f"augmented steps as in phase 7: loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in history)
+        + f"; launches simota_assign {simota_launches} (one a step), "
+        f"topk_rows {topk_rows.launches}, mosaic_warp {mosaic_warp.launches}")
+
+    # the kernel on those steps' own inputs: against its plain version, and
+    # against the dense SimOTA (sums in another order: ties may flip)
+    step_inputs = {"M=50 un-augmented step": simota_calls[0],
+                   "M=100 augmented step": simota_calls[TRAIN_STEPS]}
+    for what, args in step_inputs.items():
+        got, err = check_simota(f"the {what}'s input", args)
+        simota_err = max(simota_err, err)
+        dense = simota_assign(*args)
+        flips = int((got[0] != dense.fg_mask).sum())
+        agree = 1.0 - flips / got[0].numel()
+        both = got[0] & dense.fg_mask
+        rematched = int((both & (got[1] != dense.matched_gt)).sum())
+        log(f"[kernel] simota_assign == plain (bit for bit) on the {what}'s "
+            f"input ({int(args[2].sum())} valid labels of "
+            f"{args[2].numel()}, {int(got[0].sum())} foreground anchors); "
+            f"against the dense SimOTA: fg agreement {agree:.6f}, "
+            f"{flips} anchors change side, {rematched} foreground anchors "
+            f"matched to another label")
+        if agree < SIMOTA_FG_AGREE:
+            raise AssertionError(f"fused vs dense SimOTA on the {what}: fg "
+                                 f"agreement {agree} < {SIMOTA_FG_AGREE}")
+
+    # the loss through the fused assignment against the dense loss, on phase
+    # 6's fp32 head maps at B=2: equal assignments give equal losses
+    sides = {}
+    for name, fn in (("fused", fused_loss),
+                     ("dense", models["float32"].loss.train_loss)):
+        outs = [m.detach().requires_grad_() for m in maps]
+        losses = fn(outs, labels[:2], use_l1=True)
+        losses["loss"].backward()
+        sides[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                       [o.grad for o in outs])
+    with torch.no_grad():
+        d = yolox_decode(maps, strides)
+        lab = labels[:2]
+        args = (lab[..., 1:5], lab[..., 0].long(), lab.sum(dim=2) > 0,
+                d.preds[..., :4], d.preds[..., 4], d.preds[..., 5:],
+                d.x_shifts, d.y_shifts, d.strides)
+        fused_a, dense_a = simota_fused(*args), simota_assign(*args)
+    same = (torch.equal(fused_a[0], dense_a.fg_mask)
+            and torch.equal(fused_a[1], dense_a.matched_gt))
+    (lf, gf), (ld, gd) = sides["fused"], sides["dense"]
+    loss_err = max(abs(lf[k] - ld[k]) / max(abs(ld[k]), 1e-12) for k in ld)
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(gf, gd))
+    log(f"[loss] fused vs dense assignment on the card, phase 6's fp32 maps "
+        f"at B=2: assignments equal {same} ({int(fused_a[0].sum())} "
+        f"foreground anchors), loss {lf['loss']:.6f} vs {ld['loss']:.6f}, max "
+        f"relative error of a loss entry {loss_err:.3e}, of a map's gradient "
+        f"{grad_err:.3e} (tolerance {LOSS_TOL} where the assignments agree)")
+    if same and not (loss_err <= LOSS_TOL and grad_err <= LOSS_TOL):
+        raise AssertionError(f"loss through the fused assignment != dense: "
+                             f"{loss_err}, {grad_err}")
+    if not same and float((fused_a[0] == dense_a.fg_mask).float().mean()) \
+            < SIMOTA_FG_AGREE:
+        raise AssertionError("fused vs dense SimOTA disagree on phase 6's "
+                             "maps")
+
+    # 9. times
     note("times: serving")
     torch.backends.cudnn.benchmark = True
     with torch.inference_mode():
@@ -928,15 +1207,29 @@ def main() -> int:
     aug_fn = augment.make_augment_fn(aug_cfg, out_s2d=True)
     aug_step = make_train_step(loss_fn, augment_fn=aug_fn, apply_fn=s2d_apply)
     aug_ms = cuda_ms(torch, lambda: aug_fn(gen, aug_images, labels), iters=20)
-    aug_step_ms = cuda_ms(torch, lambda: aug_step(
-        state, aug_images, labels, generator=gen), iters=10)
-    torch.cuda.reset_peak_memory_stats()
+    # the in-step A/B: the same state and batches through the dense and the
+    # fused assignment, in turns (dense, fused, fused, dense) at each batch
+    ab_steps = {"dense": aug_step, "fused": make_train_step(
+        fused_loss, augment_fn=aug_fn, apply_fn=s2d_apply)}
     aug_images64 = bench_images(torch, dev, images64.shape[0], seed=1)
-    aug_step64_ms = cuda_ms(torch, lambda: aug_step(
-        state, aug_images64, labels64, generator=gen), iters=5, warmup=2)
-    aug_peak = torch.cuda.max_memory_allocated() / 2**30
-    aug_busy_ms, aug_top = device_profile(torch, lambda: aug_step(
-        state, aug_images, labels, generator=gen), 3)
+    ab_batches = {BATCH: (aug_images, labels, 8, 2),
+                  4 * BATCH: (aug_images64, labels64, 4, 2)}
+    ab_ms = {(v, b): [] for v in ab_steps for b in ab_batches}
+    ab_busy, ab_peak = {}, {}
+    for b, (imgs, labs, iters, warmup) in ab_batches.items():
+        for v in ("dense", "fused", "fused", "dense"):
+            torch.cuda.reset_peak_memory_stats()
+            ab_ms[v, b].append(cuda_ms(torch, lambda: ab_steps[v](
+                state, imgs, labs, generator=gen), iters=iters,
+                warmup=warmup))
+            ab_peak[v, b] = torch.cuda.max_memory_allocated() / 2**30
+        for v in ab_steps:
+            ab_busy[v, b] = device_profile(torch, lambda: ab_steps[v](
+                state, imgs, labs, generator=gen), 2)
+    ab_ms = {key: sum(ms) / len(ms) for key, ms in ab_ms.items()}
+    aug_step_ms, aug_step64_ms = ab_ms["dense", BATCH], ab_ms["dense", 4 * BATCH]
+    aug_peak = ab_peak["dense", 4 * BATCH]
+    aug_busy_ms, aug_top = ab_busy["dense", BATCH]
     # the split: the same step fed the batch augmented beforehand (the s2d
     # layout, 100 label slots), and the augmentation's own device time
     pre_img, pre_lab = aug_fn(gen, aug_images, labels)
@@ -952,6 +1245,23 @@ def main() -> int:
         torch, lambda: aug_fn(gen, aug_images, labels), 5, 10)
     del pre_img, pre_lab
     del images64, labels64, aug_images64
+    for b in ab_batches:
+        for v in ab_steps:
+            busy, top = ab_busy[v, b]
+            log(f"[profile] {v} assignment, augmented step B={b}: device busy "
+                f"{busy:.3f} ms of {ab_ms[v, b]:.3f} ms (idle share "
+                f"{1.0 - busy / ab_ms[v, b]:.3f}); top kernels, ms per step: "
+                + "; ".join(f"{ms:.4f} {name[:48]}" for name, ms in top[:6]))
+    for b in ab_batches:
+        dense_ms, fused_ms = ab_ms["dense", b], ab_ms["fused", b]
+        log(f"[time] augmented train step bf16 B={b}, in turns: dense SimOTA "
+            f"{dense_ms:.3f} ms/step ({b * 1000.0 / dense_ms:.1f} images/s, "
+            f"device busy {ab_busy['dense', b][0]:.3f} ms), fused "
+            f"simota_assign {fused_ms:.3f} ms/step ({b * 1000.0 / fused_ms:.1f}"
+            f" images/s, device busy {ab_busy['fused', b][0]:.3f} ms): fused / "
+            f"dense {fused_ms / dense_ms:.4f}; peak device memory "
+            f"{ab_peak['dense', b]:.2f} / {ab_peak['fused', b]:.2f} GiB on "
+            f"{card}")
     log(f"[profile] device busy {aug_busy_ms:.3f} ms of {aug_step_ms:.3f} ms "
         f"per augmented train step (idle share "
         f"{1.0 - aug_busy_ms / aug_step_ms:.3f}); top kernels, ms per step:")
@@ -1083,6 +1393,68 @@ def main() -> int:
     def warp_mean(key):
         return sum(r[key] for r in warp_recs.values()) / len(warp_recs)
 
+    # the fused assignment on the fused path's own two inputs: the kernel
+    # beside its bound and its plain version, and the assignment alone by
+    # the three routes of the loss, in turns
+    note("times: simota_assign")
+    simota_recs = {}
+    for what, args in step_inputs.items():
+        bound_ms, bound_by = simota_bound(args)
+        _, kernels = device_profile(torch, lambda: simota_fused(*args), 20, 8)
+        passes = {p: next((ms for name, ms in kernels if f"{p}_pass" in name),
+                          None) for p in ("anchor", "label", "assign")}
+        routes = {"fused": lambda: simota_fused(*args),
+                  "dense": lambda: simota_assign(*args),
+                  "chunked": lambda: simota_assign(*args, chunk=10)}
+        alone = {r: [] for r in routes}
+        for r in ("fused", "dense", "chunked", "chunked", "dense", "fused"):
+            alone[r].append(cuda_ms(torch, routes[r],
+                                    iters=50 if r == "fused" else 10))
+        simota_recs[what] = dict(
+            ms=sum(alone["fused"]) / 2,
+            device_ms=(None if None in passes.values()
+                       else sum(passes.values())),
+            passes=passes,
+            plain_ms=cuda_ms(torch, lambda: simota_fused_plain(*args),
+                             iters=3, warmup=1),
+            dense_ms=sum(alone["dense"]) / 2,
+            chunked_ms=sum(alone["chunked"]) / 2,
+            bound_ms=bound_ms, bound_by=bound_by)
+    for what, r in simota_recs.items():
+        device_us = ("not measured" if r["device_ms"] is None
+                     else f"{r['device_ms'] * 1e3:.2f} us (passes "
+                     + ", ".join(f"{p} {ms * 1e3:.2f}"
+                                 for p, ms in r["passes"].items()) + ")")
+        log(f"[time] simota_assign on the {what}'s input: "
+            f"{r['ms'] * 1e3:.2f} us a call by CUDA events, {device_us} of "
+            f"device time in the profiler, plain {r['plain_ms'] * 1e3:.2f} "
+            f"us, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) on "
+            f"{card}")
+        log(f"[time] SimOTA assignment alone on the {what}'s input, in "
+            f"turns: fused kernel {r['ms'] * 1e3:.2f} us, dense "
+            f"{r['dense_ms'] * 1e3:.2f} us, chunked (assign_chunk 10) "
+            f"{r['chunked_ms'] * 1e3:.2f} us on {card}")
+
+    # and on the first synthetic case (B=16, M=100, 1-99 labels an image)
+    name, args = synthetic[0]
+    syn_ms = cuda_ms(torch, lambda: simota_fused(*args), iters=20)
+    syn_plain_ms = cuda_ms(torch, lambda: simota_fused_plain(*args), iters=3,
+                           warmup=1)
+    syn_dense_ms = cuda_ms(torch, lambda: simota_assign(*args), iters=5,
+                           warmup=1)
+    _, kernels = device_profile(torch, lambda: simota_fused(*args), 10, 8)
+    passes = {p: ms for p in ("anchor", "label", "assign")
+              for kernel, ms in kernels if f"{p}_pass" in kernel}
+    log(f"[time] simota_assign on the synthetic case '{name}' "
+        f"({int(args[2].sum())} valid labels): {syn_ms * 1e3:.2f} us a call "
+        f"by CUDA events (device time of the passes, us: "
+        + ", ".join(f"{p} {ms * 1e3:.2f}" for p, ms in passes.items())
+        + f"), plain {syn_plain_ms:.3f} ms, dense SimOTA {syn_dense_ms:.3f} "
+        f"ms on {card}")
+
+    def simota_mean(key):
+        return sum(r[key] for r in simota_recs.values()) / len(simota_recs)
+
     log(card)
     log(json.dumps({"kernels": [{
         "name": "nms_suppress", "route": "cuda",
@@ -1107,7 +1479,15 @@ def main() -> int:
         "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
         "bound_ms": warp_mean("bound_ms"),
         "bound_by": warp_recs["mosaic (K=4)"]["bound_by"],
-        "library_ms": grid_ms}]}))
+        "library_ms": grid_ms}, {
+        "name": "simota_assign", "route": "cuda",
+        "source": "pl_yolo_tpu_torch/csrc/simota_assign.cu",
+        "replaces": "pl_yolo_tpu/ops/pallas/simota_pallas.py:49",
+        "launches": simota_launches, "max_abs_err": simota_err,
+        "ms": simota_mean("ms"), "plain_ms": simota_mean("plain_ms"),
+        "bound_ms": simota_mean("bound_ms"),
+        "bound_by": simota_recs["M=100 augmented step"]["bound_by"],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -20,6 +20,11 @@ whose mosaic and mixup sampling runs a hand-written CUDA warp kernel
 (`ops.mosaic`, `csrc/mosaic_warp.cu`), and the Focus stem fed its
 space-to-depth output (`layers.blocks.stem_input_s2d`).
 
+Slice 4 covers the train step with `loss: {pallas_assign: true}`: the whole
+SimOTA assignment as one hand-written CUDA kernel
+(`ops.simota.simota_assign_fused`, `csrc/simota_assign.cu`) in place of the
+dense [B,M,A] path and its top-k launches.
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..ops.mosaic import (from_chw, mosaic_sample_idx, to_chw,
                           warp_sample_idx)
 
@@ -119,11 +120,11 @@ def sample_draws(generator: torch.Generator | None, batch: int,
                  size: tuple[int, int], cfg: AugmentConfig,
                  device=None) -> AugmentDraws:
     """Draw one batch's `AugmentDraws` from `generator`, on its device (with
-    no generator: torch's default one, on `device`, default the CPU). `size`
-    is the images' (H, W). The distributions are the JAX package's."""
-    if generator is not None:
-        device = generator.device
-    device = torch.device("cpu" if device is None else device)
+    no generator: torch's default one, on `device`, default the card; pass
+    `device="cpu"` for the CPU). `size` is the images' (H, W). The
+    distributions are the JAX package's."""
+    device = (generator.device if generator is not None
+              else resolve_device(device))
     h, w = size
 
     def uniform(lo, hi, *shape):

@@ -110,8 +110,8 @@ def _yolox_loss_spec(cfg: dict, num_classes: int) -> LossSpec:
             # outputs with [B, N, A] peak temporaries
             assign_chunk=(int(cfg["assign_chunk"])
                           if cfg.get("assign_chunk") else None),
-            # loss: {pallas_assign: true}: the fused assignment kernel, not
-            # ported yet (yolox_loss raises)
+            # loss: {pallas_assign: true}: the fused assignment kernel
+            # (ops.simota), in place of the dense or chunked SimOTA
             pallas_assign=bool(cfg.get("pallas_assign", False))),
         eval_decode=functools.partial(yolox_eval_decode, strides=strides),
         strides=strides,

@@ -11,7 +11,11 @@ vmaps a per-image function, the batch dim is written out here. The
 assignment is not differentiated: `yolox_loss` runs it under
 `torch.no_grad()` on detached predictions. Its dynamic-k uses
 `ops.topk.topk_lastdim` (k <= 10), which on the card is the row top-k
-kernel. The cls BCE cost uses the one-hot decomposition
+kernel. With `pallas_assign` the loss takes the fused assignment instead
+(`ops.simota.simota_assign_fused`, on the card a hand-written CUDA kernel
+that holds no [B, M, A] tensor), as the JAX package takes its Pallas
+kernel; `pallas_assign` wins over `assign_chunk`. The cls BCE cost uses the
+one-hot decomposition
     sum_c BCE(p_c, onehot_c) = S - log p_cls + log(1 - p_cls),
     S = -sum_c log(1 - p_c),
 an [A, C] pass plus [M, A] selections. Where the JAX package selects a
@@ -26,13 +30,13 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ...ops.boxes import cxcywh2xyxy, iou_loss, pairwise_iou
+# Additive penalties for masked-out cost entries, shared with the fused
+# assignment's plain version: CENTER_PENALTY is the soft penalty for
+# candidates outside box-and-center; INVALID_PENALTY excludes non-candidate
+# anchors and invalid labels entirely.
+from ...ops.cuda.simota import CENTER_PENALTY, INVALID_PENALTY
+from ...ops.simota import simota_assign_fused
 from ...ops.topk import topk_lastdim
-
-# Additive penalties for masked-out cost entries: CENTER_PENALTY is the soft
-# penalty for candidates outside box-and-center; INVALID_PENALTY excludes
-# non-candidate anchors and invalid labels entirely.
-CENTER_PENALTY = 100000.0
-INVALID_PENALTY = 1e9
 
 
 class DecodeOut(NamedTuple):
@@ -281,10 +285,6 @@ def yolox_loss(
     batch's foreground count. `use_l1` is a bool (the L1 term computed or
     not) or a 0/1 tensor that gates a computed term, for a schedule that
     flips it without a sync. A label slot is valid where its row sums > 0."""
-    if pallas_assign:
-        raise NotImplementedError(
-            "loss: {pallas_assign: true} selects the fused SimOTA assignment "
-            "kernel, which is not ported yet (ROADMAP queue B, item 4)")
     d = yolox_decode(outputs, strides)
     bbox_preds = d.preds[..., :4]
     obj_logits = d.preds[..., 4]
@@ -299,10 +299,20 @@ def yolox_loss(
     gt_boxes = labels[..., 1:5]
 
     with torch.no_grad():
-        assign = simota_assign(
-            gt_boxes, gt_classes, gt_valid, bbox_preds.detach(),
-            obj_logits.detach(), cls_logits.detach(),
-            d.x_shifts, d.y_shifts, d.strides, chunk=assign_chunk)
+        if pallas_assign:
+            fg_mask, matched_gt, pred_ious = simota_assign_fused(
+                gt_boxes, gt_classes, gt_valid, bbox_preds.detach(),
+                obj_logits.detach(), cls_logits.detach(),
+                d.x_shifts, d.y_shifts, d.strides)
+            assign = AssignOut(
+                fg_mask=fg_mask, matched_gt=matched_gt, pred_ious=pred_ious,
+                num_fg=fg_mask.sum(dim=1).float(),
+                num_gt=gt_valid.sum(dim=1).float())
+        else:
+            assign = simota_assign(
+                gt_boxes, gt_classes, gt_valid, bbox_preds.detach(),
+                obj_logits.detach(), cls_logits.detach(),
+                d.x_shifts, d.y_shifts, d.strides, chunk=assign_chunk)
 
     fg = assign.fg_mask.to(torch.float32)                      # [B, A]
     num_fgs = assign.num_fg.sum().clamp(min=1.0)

@@ -211,14 +211,6 @@ def test_yolox_loss_without_any_label_matches_jax():
     _assert_loss_matches(got, _jax_loss_and_grads(maps, labels, use_l1=True))
 
 
-def test_pallas_assign_is_not_ported_and_raises():
-    maps, labels = _problem(7)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 4"):
-        tyolox.yolox_loss([torch.from_numpy(m) for m in maps],
-                          torch.from_numpy(labels), NUM_CLASSES, STRIDES,
-                          pallas_assign=True)
-
-
 def test_loss_spec_reads_the_config_keys():
     cfg = load_config(CONFIG_DIR / "model" / "yolox_nano.yaml")
     cfg["loss"].update(use_l1=True, assign_chunk=2, stride=list(STRIDES))
