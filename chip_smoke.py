@@ -10,8 +10,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      assignment), all `nvcc`s at once;
   3. kernels: each kernel against its plain PyTorch version on the card (the
      row top-k also against `torch.topk`; the mosaic warp in bf16 and fp32
-     pools, through both entries, at B=16 640^2 and at 2x3x72x88; the
-     SimOTA assignment on 9 synthetic cases, NaN logits among them);
+     pools, through both entries, at B=16 640^2 and at 2x3x72x88, with
+     K=4 and 1 as the path calls it and K=5 and 8 overlapping tiles; the
+     SimOTA assignment on 11 synthetic cases, NaN logits and images with no
+     or 9 candidates among them); both warp entries captured in a CUDA graph
+     at B=16 640^2 and replayed, equal to an eager call (a host read-back in
+     the wrapper would make the capture fail); and a tile index outside the
+     pool, in a child process, ending it with a device-side assert;
   4. serving: `build_model(yolox_s.yaml, 80 classes)` from a seeded random
      init, 4 requests of [16,640,640,3] images through eval forward,
      `eval_decode` and `postprocess`, in the config's bf16 and in fp32 (TF32
@@ -45,6 +50,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      assignment alone (fused, dense, chunked), the augmentation alone, the
      train steps' split and device profiles, and each kernel's time beside
      its bound, its plain version's time and the PyTorch library call's,
+     the phase split of the redesigned kernels (the warp with every tile
+     out of reach, the SimOTA passes with each image's candidates) and the
+     augmentation's pool build, beside the first kernel versions' numbers,
      with the card's name and power limit.
 
 The line before the last is the `kernels` JSON record, and the last line is
@@ -95,6 +103,20 @@ SIMOTA_FG_AGREE = 0.999
 # sqrt, clip 2, log1p and its negation, sum: 11); per (valid label, anchor)
 # pair (gates 20, IoU 13, cls cost 13, IoU cost 5, penalties 2, ranking 2)
 SIMOTA_OPS_PER_CLASS_TERM, SIMOTA_OPS_PER_PAIR = 11, 55
+# the first versions of the two redesigned kernels (one thread a pixel; three
+# SimOTA passes over all anchors) on the main path's inputs, measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W and printed beside this
+# run's: device us and CUDA-event us a call
+FIRST_WARP_US = {"mosaic (K=4)": (113.34, 262.01),
+                 "mixup (K=1)": (69.05, 129.68)}
+FIRST_GRID_SAMPLE_US = 82.23
+FIRST_SIMOTA_US = {"M=50 un-augmented step": (122.52, 140.97,
+                                            "anchor 51.00, label 51.51, "
+                                            "assign 20.01"),
+                 "M=100 augmented step": (197.93, 222.57,
+                                          "anchor 54.64, label 97.26, "
+                                          "assign 46.04")}
+SIMOTA_PASSES = ("anchor", "label", "label_merge", "assign")
 # a bias after 4 SGD steps vs the same steps redone by hand from its
 # recorded gradients: fp32 rounding of a few multiply-adds
 UPDATE_TOL = 1e-5  # on max |change - by hand| / max |change|
@@ -160,6 +182,21 @@ def device_profile(torch, fn, iters: int, top: int = 14):
             rows.append((e.key, us / 1e3 / iters))
     rows.sort(key=lambda r: -r[1])
     return sum(ms for _, ms in rows), rows[:top]
+
+
+def kernel_device_ms(torch, fn, names, iters: int = 20, traces: int = 3):
+    """{name: device ms a call} of the kernels whose names contain `names`,
+    the mean over `traces` profiler traces of `iters` calls each; the trace
+    on the chip machine sometimes drops a kernel, so a name counts only the
+    traces that hold it, and is None if none does."""
+    found = {n: [] for n in names}
+    for _ in range(traces):
+        _, kernels = device_profile(torch, fn, iters, 16)
+        for n in names:
+            ms = next((ms for k, ms in kernels if n in k), None)
+            if ms is not None:
+                found[n].append(ms)
+    return {n: sum(v) / len(v) if v else None for n, v in found.items()}
 
 
 def nms_cases(torch, dev):
@@ -305,6 +342,19 @@ def mixup_geometry_case(torch, g, kind, b, h, w):
     return torch.randperm(b, generator=g), xs, ys
 
 
+def many_tiles_case(torch, g, k, b, h, w):
+    """(tidx, ox, oy, xs, ys) of a warp of k > 4 overlapping tiles (the
+    kernel stages the taps of 4 tiles at a time): a K=4 mosaic plus tiles
+    shifted by thirds of a tile."""
+    tidx, ox, oy, xs, ys = mosaic_geometry_case(torch, g, "overlapping", b,
+                                                h, w)
+    more = range(1, (k + 3) // 4)
+    tidx = torch.cat([tidx, *(torch.roll(tidx, i, 1) for i in more)], 1)
+    ox = torch.cat([ox, *(ox + i * w // 3 for i in more)], 1)
+    oy = torch.cat([oy, *(oy + i * h // 3 for i in more)], 1)
+    return tidx[:, :k], ox[:, :k], oy[:, :k], xs, ys
+
+
 MOSAIC_KINDS = ("scale 0.1", "scale 2.0", "centres at the window's edges",
                 "flipped", "outside the window")
 MIXUP_KINDS = ("scale 0.5", "scale 1.5", "flipped", "outside the window")
@@ -313,7 +363,7 @@ MIXUP_KINDS = ("scale 0.5", "scale 1.5", "flipped", "outside the window")
 def warp_cases(torch, dev):
     """(name, entry, args, plain args) of the mosaic-warp checks on the card:
     both entries, bf16 and fp32 pools, the main path's B=16 640^2 and an odd
-    small 2x3x72x88."""
+    small 2x3x72x88; K=4 and 1 as the path calls them, and K=5 and 8."""
     from pl_yolo_tpu_torch.ops.mosaic import FILL
     g = torch.Generator().manual_seed(13)
     cases = []
@@ -327,6 +377,13 @@ def warp_cases(torch, dev):
                     torch, g, kind, b, h, w))
                 cases.append((f"mosaic K=4, {kind}, {what}", "mosaic",
                               (pool, tidx, ox, oy, xs, ys),
+                              (pool, tidx, ox, oy, xs, ys, 2 * w, 2 * h,
+                               FILL)))
+            for k in (5, 8):  # more than one group of staged taps
+                tidx, ox, oy, xs, ys = (t.to(dev) for t in many_tiles_case(
+                    torch, g, k, b, h, w))
+                cases.append((f"mosaic K={k}, overlapping tiles, {what}",
+                              "mosaic", (pool, tidx, ox, oy, xs, ys),
                               (pool, tidx, ox, oy, xs, ys, 2 * w, 2 * h,
                                FILL)))
             for kind in MIXUP_KINDS:
@@ -369,6 +426,112 @@ def warp_bound(torch, pool, tidx, ox, oy, xs, ys, hix, hiy):
              "operations": 9.0 * 3 * pairs / PEAK_FP32_FLOPS * 1e3}
     bound_by = max(bound, key=bound.get)
     return bound[bound_by], bound_by, texels
+
+
+# the warp's phase split, by its inputs: the same call with every tile's
+# origin moved out of reach computes all the taps and writes the fill but
+# reads no texel (every tile weighs 0 on every block and is skipped); the
+# call as made adds the loads and their sums
+WARP_SPLIT = ("taps + stores", "full kernel")
+
+
+def warp_step_calls(torch, aug_fn, gen, images, labels):
+    """The (args, kwargs) of the two `mosaic_warp` calls (mosaic K=4, mixup
+    K=1) that one run of the augmentation makes, recorded as it makes them."""
+    from pl_yolo_tpu_torch.ops import mosaic as mosaic_module
+    warp = mosaic_module.mosaic_warp
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return warp(*args, **kw)
+
+    mosaic_module.mosaic_warp = recording
+    try:
+        aug_fn(gen, images, labels)
+    finally:
+        mosaic_module.mosaic_warp = warp
+    return calls
+
+
+def warp_split(torch, calls, iters=20):
+    """{call index: {split name: device ms a call}} of the warp kernel on
+    the recorded calls (WARP_SPLIT), from the profiler."""
+    from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp
+    out = {}
+    for i, (args, kw) in enumerate(calls):
+        pool, tidx, *_, xs, ys = args
+        away = (torch.full(tidx.shape, kw["hix"] + 1, dtype=torch.int32,
+                           device=tidx.device),
+                torch.full(tidx.shape, kw["hiy"] + 1, dtype=torch.int32,
+                           device=tidx.device))
+        variants = {"taps + stores": (pool, tidx, *away, xs, ys),
+                    "full kernel": args}
+        out[i] = {name: kernel_device_ms(
+            torch, lambda a=variants[name]: mosaic_warp(*a, **kw),
+            ("mosaic_warp_kernel",), iters)["mosaic_warp_kernel"]
+            for name in WARP_SPLIT}
+    return out
+
+
+def with_origins(torch, args):
+    """A warp call's positional args with zero origins where the call has
+    none (the K=1 entry), as `warp_plain` and the bound take them."""
+    pool, tidx, ox, oy, *rest = args
+    if ox is None:
+        ox = oy = torch.zeros(tidx.shape, dtype=torch.int32,
+                              device=tidx.device)
+    return (pool, tidx, ox, oy, *rest)
+
+
+def graph_replay_equal(torch, entry, args):
+    """Capture one call of `entry(*args)` in a CUDA graph, replay it, and
+    compare the replay's output with an eager call's, bit for bit."""
+    eager = entry(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        entry(*args)  # the warm-up that torch.cuda.graph asks for
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = entry(*args)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(out, eager)
+
+
+# a mosaic warp whose second image draws tile 2 of a 2-image pool
+BAD_INDEX_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from pl_yolo_tpu_torch.ops.mosaic import mosaic_sample_idx
+pool = torch.zeros((2, 3, 64, 64), dtype=torch.bfloat16, device="cuda")
+tidx = torch.tensor([[0, 1, 0, 1], [1, 0, 2, 0]], device="cuda")
+ox = torch.tensor([[0, 64, 0, 64]] * 2, dtype=torch.int32, device="cuda")
+oy = torch.tensor([[0, 0, 64, 64]] * 2, dtype=torch.int32, device="cuda")
+xs = torch.arange(64, dtype=torch.float32, device="cuda")[None].repeat(2, 1) * 2
+out = mosaic_sample_idx(pool, tidx, ox, oy, xs, xs.clone())
+torch.cuda.synchronize()
+print("the bad tile index went through")
+"""
+
+
+def bad_index_ends_the_run():
+    """Run BAD_INDEX_CHILD in a child process (a device-side assert spoils
+    the CUDA context); returns (exit code, the stderr line naming it)."""
+    child = subprocess.run([sys.executable, "-c", BAD_INDEX_CHILD, str(ROOT)],
+                           capture_output=True, text=True, timeout=600)
+    named = [line for line in child.stderr.splitlines()
+             if "device-side assert" in line]
+    if child.returncode == 0 or not named:
+        raise AssertionError(
+            f"a tile index outside the pool did not end the run with a "
+            f"device-side assert: exit {child.returncode}, stdout "
+            f"{child.stdout[-500:]!r}, stderr {child.stderr[-2000:]!r}")
+    return child.returncode, named[0].strip()
 
 
 def anchor_grid(torch, size, strides):
@@ -417,6 +580,11 @@ def simota_case(torch, g, dev, b, m, c, size, strides=(8, 16, 32),
     elif kind == "ties: repeated identical predictions":
         preds[...] = preds[:1, :1]           # one box and one logit row
         boxes[:, 1::2] = boxes[:, ::2][:, :boxes[:, 1::2].shape[1]]
+    elif kind == "an image with no candidate":   # its labels lie far outside
+        boxes[1, :, :2] = -5000.0
+    elif kind == "an image with 9 candidates":    # 4x4 px labels at (-15, -15):
+        boxes[0, :, :2] = -15.0                   # 1 + 4 + 4 centre-gate anchors
+        boxes[0, :, 2:] = 4.0
     elif kind == "NaN logits":
         preds[:, ::7, 5] = float("nan")      # a class logit of every 7th
         preds[0, 100:130, 4] = float("nan")  # anchor; obj of 30 anchors
@@ -442,11 +610,34 @@ def simota_cases(torch, dev):
             (2, 13, 7, 128, (8, 16), "class index out of range"),
             (4, MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32),
              "ties: repeated identical predictions"),
-            (4, 13, NUM_CLASSES, SIZE, (8, 16, 32), "NaN logits")):
+            (4, 13, NUM_CLASSES, SIZE, (8, 16, 32), "NaN logits"),
+            (3, AUG_MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32),
+             "an image with no candidate"),
+            (3, MAX_LABELS, NUM_CLASSES, SIZE, (8, 16, 32),
+             "an image with 9 candidates")):
         args = simota_case(torch, g, dev, b, m, c, size, strides, kind=kind)
         cases.append((f"{kind}, B={b} M={m} A={args[6].shape[0]} C={c}",
                       args))
     return cases
+
+
+def simota_candidates(torch, args, radius=2.5):
+    """Each image's number of candidate anchors (inside either gate of one
+    of its valid labels), and the number of valid label rows with fewer
+    than 10 anchors inside both their gates (the rows whose every cost the
+    kernel's label pass computes)."""
+    gt, _, valid, _, _, _, xs, ys, st = args
+    xc, yc, rad = (xs + 0.5) * st, (ys + 0.5) * st, radius * st
+    gx, gy, gw, gh = (t[..., None] for t in gt.unbind(-1))
+    in_box = torch.minimum(
+        torch.minimum(xc - (gx - gw * 0.5), (gx + gw * 0.5) - xc),
+        torch.minimum(yc - (gy - gh * 0.5), (gy + gh * 0.5) - yc)) > 0.0
+    in_center = torch.minimum(
+        torch.minimum(xc - (gx - rad), (gx + rad) - xc),
+        torch.minimum(yc - (gy - rad), (gy + rad) - yc)) > 0.0
+    small = ((in_box & in_center).sum(-1) < 10) & valid
+    return (((in_box | in_center) & valid[..., None]).any(1).sum(1).tolist(),
+            int(small.sum()))
 
 
 def simota_bound(args):
@@ -611,9 +802,24 @@ def main() -> int:
         return err
 
     warp_err = 0.0
+    graph_cases = {}
     for name, entry, args, plain_args in warp_cases(torch, dev):
         warp_err = max(warp_err, check_warp(name, entry, args, plain_args))
         log(f"[kernel] mosaic_warp == plain (bit for bit) on {name}")
+        if args[0].shape[0] == BATCH and args[0].dtype == torch.bfloat16:
+            graph_cases.setdefault(entry, (name, args))
+
+    # no host read-back: both entries captured in a CUDA graph and replayed
+    for entry, (name, args) in graph_cases.items():
+        fn = mosaic_sample_idx if entry == "mosaic" else warp_sample_idx
+        if not graph_replay_equal(torch, fn, args):
+            raise AssertionError(f"{fn.__name__} replayed from a CUDA graph "
+                                 f"!= eager on '{name}'")
+        log(f"[kernel] {fn.__name__} captured in a CUDA graph and replayed: "
+            f"equal to an eager call bit for bit on {name}")
+    rc, named = bad_index_ends_the_run()
+    log(f"[kernel] mosaic_warp with a tile index outside the pool (child "
+        f"process): exit {rc}, stderr: {named[:120]}")
 
     def check_simota(name, args):
         """The kernel against its plain version: fg and matched equal,
@@ -1300,12 +1506,11 @@ def main() -> int:
         bound = {"operations": 2.0 * a * scans / PEAK_FP32_FLOPS * 1e3,
                  "bytes": (rows * a + rows * TOPK_K) * 4 / PEAK_BYTES * 1e3}
         bound_by = max(bound, key=bound.get)
-        _, kernels = device_profile(torch, lambda: topk_rows(x, TOPK_K), 20, 5)
         return dict(
             ms=cuda_ms(torch, lambda: topk_rows(x, TOPK_K), iters=50),
-            # the trace may miss a kernel: then its device time is unknown
-            device_ms=next((ms for name, ms in kernels
-                            if "topk_rows_kernel" in name), None),
+            device_ms=kernel_device_ms(torch, lambda: topk_rows(x, TOPK_K),
+                                       ("topk_rows_kernel",))[
+                                           "topk_rows_kernel"],
             plain_ms=cuda_ms(torch, lambda: topk_plain(x, TOPK_K), iters=10),
             library_ms=cuda_ms(
                 torch, lambda: torch.topk(x, TOPK_K, dim=-1).values, iters=50),
@@ -1330,40 +1535,31 @@ def main() -> int:
     # the mosaic warp on the augmented step's own two calls, recorded as the
     # augmentation makes them
     note("times: mosaic_warp")
-    from pl_yolo_tpu_torch.ops import mosaic as mosaic_module
-    calls = []
-
-    def recording(*args, **kw):
-        calls.append((args, kw))
-        return mosaic_warp(*args, **kw)
-
-    mosaic_module.mosaic_warp = recording
-    try:
-        aug_fn(gen, aug_images, labels)
-    finally:
-        mosaic_module.mosaic_warp = mosaic_warp
+    calls = warp_step_calls(torch, aug_fn, gen, aug_images, labels)
     warp_recs = {}
     for what, (args, kw) in zip(("mosaic (K=4)", "mixup (K=1)"), calls):
-        got, want = mosaic_warp(*args, **kw), warp_plain(*args, **kw)
+        got, want = mosaic_warp(*args, **kw), warp_plain(
+            *with_origins(torch, args), **kw)
         if not torch.equal(got, want):
             raise AssertionError(f"mosaic_warp != plain on the step's {what}")
         warp_err = max(warp_err, float((got.float() - want.float()).abs().max()))
-        bound_ms, bound_by, texels = warp_bound(torch, *args, kw["hix"],
-                                                kw["hiy"])
-        _, kernels = device_profile(torch, lambda: mosaic_warp(*args, **kw),
-                                    20, 5)
+        bound_ms, bound_by, texels = warp_bound(
+            torch, *with_origins(torch, args), kw["hix"], kw["hiy"])
         warp_recs[what] = dict(
             ms=cuda_ms(torch, lambda: mosaic_warp(*args, **kw), iters=50),
-            device_ms=next((ms for name, ms in kernels
-                            if "mosaic_warp_kernel" in name), None),
-            plain_ms=cuda_ms(torch, lambda: warp_plain(*args, **kw), iters=10),
+            device_ms=kernel_device_ms(
+                torch, lambda: mosaic_warp(*args, **kw),
+                ("mosaic_warp_kernel",))["mosaic_warp_kernel"],
+            plain_ms=cuda_ms(torch, lambda: warp_plain(
+                *with_origins(torch, args), **kw), iters=10),
             bound_ms=bound_ms, bound_by=bound_by, texels=texels)
+    split = warp_split(torch, calls)
     # the library yardstick: grid_sample over the same [B,3,H,W] output with
     # the K=1 warp's grid (the same sampling but for the partial blend at
     # the edge); the port never calls it. In fp32: grid_sample takes a grid
     # of its input's dtype, and a bf16 grid cannot address 640 columns to
     # within a pixel.
-    pool, idx, _, _, xs, ys = calls[1][0]
+    pool, idx, _, _, xs, ys = with_origins(torch, calls[1][0])
     source = pool[idx[:, 0].long()].float()
     grid = torch.stack([
         (xs * (2.0 / (SIZE - 1)) - 1.0)[:, None, :].expand(-1, SIZE, -1),
@@ -1376,19 +1572,39 @@ def main() -> int:
 
     grid_ms = cuda_ms(torch, library, iters=50)
     same = float(((library() - warp_plain(source, torch.arange(
-        BATCH, device=dev)[:, None], *calls[1][0][2:], **calls[1][1])
-        ).abs() <= 1e-2).float().mean())
-    for what, r in warp_recs.items():
+        BATCH, device=dev)[:, None], *with_origins(torch, calls[1][0])[2:],
+        **calls[1][1])).abs() <= 1e-2).float().mean())
+    for i, (what, r) in enumerate(warp_recs.items()):
         device_us = ("not measured" if r["device_ms"] is None
                      else f"{r['device_ms'] * 1e3:.2f} us")
+        old_dev, old_ev = FIRST_WARP_US[what]
         log(f"[time] mosaic_warp on the step's {what} [{BATCH},3,{SIZE},"
-            f"{SIZE}] bf16: {r['ms'] * 1e3:.2f} us a call ({device_us} of "
-            f"device time in the profiler), plain {r['plain_ms'] * 1e3:.2f} "
-            f"us, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}: "
-            f"{r['texels']} distinct source texels) on {card}")
+            f"{SIZE}] bf16: {r['ms'] * 1e3:.2f} us a call by CUDA events "
+            f"(first version: {old_ev}), {device_us} of device time in the "
+            f"profiler (first version: {old_dev}), plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}: {r['texels']} "
+            f"distinct source texels) on {card}")
+        log(f"[time] mosaic_warp split on the step's {what}, device us a "
+            f"call: " + ", ".join(
+                f"{name} " + ("not measured" if ms is None
+                              else f"{ms * 1e3:.2f}")
+                for name, ms in split[i].items())
+            + f" on {card}")
     log(f"[time] grid_sample (bilinear, zeros, align_corners, fp32) on the "
-        f"mixup call's grid: {grid_ms * 1e3:.2f} us ({same:.4f} of its "
-        f"values within 1e-2 of the fp32 K=1 warp's) on {card}")
+        f"mixup call's grid: {grid_ms * 1e3:.2f} us (beside the first "
+        f"version: {FIRST_GRID_SAMPLE_US}; {same:.4f} of its values within "
+        f"1e-2 of the fp32 K=1 warp's) on {card}")
+    # the pool the warps read: the uint8 NHWC batch to bf16, then to the
+    # channel-major layout (data/augment.py's two copies before the warps)
+    from pl_yolo_tpu_torch.ops.mosaic import to_chw
+    _, pool_kernels = device_profile(
+        torch, lambda: to_chw(aug_images.to(torch.bfloat16)), 20, 4)
+    log(f"[time] the augmentation's pool build (uint8 [{BATCH},{SIZE},{SIZE},"
+        f"3] -> bf16 -> [{BATCH},3,{SIZE},{SIZE}]): "
+        f"{sum(ms for _, ms in pool_kernels) * 1e3:.2f} us of device time ("
+        + "; ".join(f"{ms * 1e3:.2f} {name[:60]}" for name, ms in pool_kernels)
+        + f") on {card}")
 
     def warp_mean(key):
         return sum(r[key] for r in warp_recs.values()) / len(warp_recs)
@@ -1400,9 +1616,9 @@ def main() -> int:
     simota_recs = {}
     for what, args in step_inputs.items():
         bound_ms, bound_by = simota_bound(args)
-        _, kernels = device_profile(torch, lambda: simota_fused(*args), 20, 8)
-        passes = {p: next((ms for name, ms in kernels if f"{p}_pass" in name),
-                          None) for p in ("anchor", "label", "assign")}
+        by_name = kernel_device_ms(torch, lambda: simota_fused(*args),
+                                   [f"{p}_pass" for p in SIMOTA_PASSES])
+        passes = {p: by_name[f"{p}_pass"] for p in SIMOTA_PASSES}
         routes = {"fused": lambda: simota_fused(*args),
                   "dense": lambda: simota_assign(*args),
                   "chunked": lambda: simota_assign(*args, chunk=10)}
@@ -1419,17 +1635,23 @@ def main() -> int:
                              iters=3, warmup=1),
             dense_ms=sum(alone["dense"]) / 2,
             chunked_ms=sum(alone["chunked"]) / 2,
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by,
+            candidates=simota_candidates(torch, args))
     for what, r in simota_recs.items():
+        old_dev, old_ev, old_passes = FIRST_SIMOTA_US[what]
         device_us = ("not measured" if r["device_ms"] is None
                      else f"{r['device_ms'] * 1e3:.2f} us (passes "
-                     + ", ".join(f"{p} {ms * 1e3:.2f}"
+                     + ", ".join(f"{p} " + ("not measured" if ms is None
+                                            else f"{ms * 1e3:.2f}")
                                  for p, ms in r["passes"].items()) + ")")
         log(f"[time] simota_assign on the {what}'s input: "
-            f"{r['ms'] * 1e3:.2f} us a call by CUDA events, {device_us} of "
-            f"device time in the profiler, plain {r['plain_ms'] * 1e3:.2f} "
-            f"us, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) on "
-            f"{card}")
+            f"{r['ms'] * 1e3:.2f} us a call by CUDA events (first version: "
+            f"{old_ev}), {device_us} of device time in the profiler (first "
+            f"version: {old_dev}; {old_passes}), plain {r['plain_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); candidates an "
+            f"image {r['candidates'][0]} of {n_anchors}; valid rows with "
+            f"fewer than 10 anchors inside both gates {r['candidates'][1]} "
+            f"on {card}")
         log(f"[time] SimOTA assignment alone on the {what}'s input, in "
             f"turns: fused kernel {r['ms'] * 1e3:.2f} us, dense "
             f"{r['dense_ms'] * 1e3:.2f} us, chunked (assign_chunk 10) "
@@ -1442,9 +1664,10 @@ def main() -> int:
                            warmup=1)
     syn_dense_ms = cuda_ms(torch, lambda: simota_assign(*args), iters=5,
                            warmup=1)
-    _, kernels = device_profile(torch, lambda: simota_fused(*args), 10, 8)
-    passes = {p: ms for p in ("anchor", "label", "assign")
-              for kernel, ms in kernels if f"{p}_pass" in kernel}
+    by_name = kernel_device_ms(torch, lambda: simota_fused(*args),
+                               [f"{p}_pass" for p in SIMOTA_PASSES], 10)
+    passes = {p: ms for p in SIMOTA_PASSES
+              if (ms := by_name[f"{p}_pass"]) is not None}
     log(f"[time] simota_assign on the synthetic case '{name}' "
         f"({int(args[2].sum())} valid labels): {syn_ms * 1e3:.2f} us a call "
         f"by CUDA events (device time of the passes, us: "

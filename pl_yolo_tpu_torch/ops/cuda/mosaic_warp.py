@@ -7,7 +7,8 @@ xs, ys, hix, hiy, fill)` takes
 
 * pool [N,3,H,W] bf16 or fp32, contiguous: the source images;
 * tidx [B,K] integer: output b draws tile k from `pool[tidx[b, k]]`;
-* ox, oy [B,K] integer: each tile's origin in window coordinates;
+* ox, oy [B,K] integer: each tile's origin in window coordinates, or both
+  None: every origin 0 (the K=1 mixup warp);
 * xs [B,W], ys [B,H] float: each output column's and row's raw source
   coordinate in the window, valid on [0, hix-1] and [0, hiy-1];
 
@@ -17,15 +18,22 @@ the kernel's source note). The sum runs in fp32 and is rounded once.
 
 A tensor on the CPU goes through the plain version (`warp_plain`); a
 tensor on the card launches the kernel, on the current stream, or raises.
-On the card the wrapper checks that every tile index lies in [0, N), which
-reads the indices back to the host (one synchronisation a call). Pixels
-must be finite: a tile whose taps all weigh 0 is skipped by the kernel,
-where the plain version multiplies it by 0. `mosaic_warp.launches` counts
-kernel launches.
+The kernel takes the dtypes the augmentation holds (int64 tidx, int32
+origins, fp32 coordinates); others are converted first. A tile index
+outside [0, N) raises `IndexError` on the CPU. On the card the wrapper
+reads nothing back to the host, so a call can be captured in a CUDA graph:
+the kernel never reads such a tile, sets a flag on the card instead, and
+the wrapper asserts the flag on the card's timeline (`torch._assert_async`),
+so the run stops with a device-side assert at its next synchronisation.
+Every other check needs only shapes, dtypes and devices and raises at
+once. Pixels must be finite: a tile whose taps all weigh 0 is skipped by
+the kernel, where the plain version multiplies it by 0.
+`mosaic_warp.launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -95,11 +103,9 @@ def warp_plain(pool: torch.Tensor, tidx: torch.Tensor, ox: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = build.load("mosaic_warp")
     fn = lib.mosaic_warp
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                   i32, i32, i32, i32, i32, ctypes.c_float, ptr]
     fn.restype = ctypes.c_int
     return lib
 
@@ -115,19 +121,24 @@ def _check(pool, tidx, ox, oy, xs, ys, hix, hiy) -> None:
     if tidx.dim() != 2 or tidx.shape[1] < 1:
         raise ValueError(f"tidx must be [B,K] with K >= 1, got "
                          f"{tuple(tidx.shape)}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"pool planes must hold < 2^31 pixels, got {h}x{w}")
     b = tidx.shape[0]
-    for name, t, shape in (("ox", ox, tidx.shape), ("oy", oy, tidx.shape),
+    if (ox is None) != (oy is None):
+        raise ValueError("ox and oy must both be tensors or both be None")
+    origins = () if ox is None else (("ox", ox), ("oy", oy))
+    for name, t, shape in (*((n, t, tidx.shape) for n, t in origins),
                            ("xs", xs, (b, w)), ("ys", ys, (b, h))):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} must be {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
-    for name, t in (("tidx", tidx), ("ox", ox), ("oy", oy)):
+    for name, t in (("tidx", tidx), *origins):
         if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool:
             raise TypeError(f"{name} must be an integer tensor, got {t.dtype}")
     for name, t in (("xs", xs), ("ys", ys)):
         if not t.is_floating_point():
             raise TypeError(f"{name} must be a float tensor, got {t.dtype}")
-    for t in (tidx, ox, oy, xs, ys):
+    for t in (tidx, *(t for _, t in origins), xs, ys):
         if t.device != pool.device:
             raise ValueError(f"all inputs must be on {pool.device}, one is "
                              f"on {t.device}")
@@ -135,14 +146,36 @@ def _check(pool, tidx, ox, oy, xs, ys, hix, hiy) -> None:
         raise ValueError(f"hix and hiy must be >= 1, got {hix}, {hiy}")
 
 
-def mosaic_warp(pool: torch.Tensor, tidx: torch.Tensor, ox: torch.Tensor,
-                oy: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t as a contiguous tensor of `dtype`, converted only where it is not
+    one already (the augmentation's tensors are: no call on the host)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+# one int32 a card, held at 1; the kernel writes 0 on a tile index outside
+# [0, N), and then the run is over (a device-side assert)
+_OK: dict[torch.device, torch.Tensor] = {}
+
+
+def _ok_flag(device: torch.device) -> torch.Tensor:
+    if device not in _OK:
+        _OK[device] = torch.ones(1, dtype=torch.int32, device=device)
+    return _OK[device]
+
+
+def mosaic_warp(pool: torch.Tensor, tidx: torch.Tensor,
+                ox: torch.Tensor | None, oy: torch.Tensor | None,
+                xs: torch.Tensor, ys: torch.Tensor,
                 hix: int, hiy: int, fill: float) -> torch.Tensor:
     _check(pool, tidx, ox, oy, xs, ys, hix, hiy)
     if pool.device.type == "cpu":
         if tidx.numel() and not 0 <= int(tidx.min()) <= int(tidx.max()) \
                 < pool.shape[0]:
             raise IndexError(f"tidx must lie in [0, {pool.shape[0]})")
+        if ox is None:
+            ox = oy = torch.zeros(tidx.shape, dtype=torch.int32)
         return warp_plain(pool, tidx, ox, oy, xs, ys, hix, hiy, fill)
     if pool.device.type != "cuda":
         raise ValueError(f"mosaic_warp runs on cuda or cpu, not {pool.device}")
@@ -153,21 +186,25 @@ def mosaic_warp(pool: torch.Tensor, tidx: torch.Tensor, ox: torch.Tensor,
     out = torch.empty((b, 3, h, w), dtype=pool.dtype, device=pool.device)
     if b == 0:
         return out
-    tidx, ox, oy = (t.to(torch.int32).contiguous() for t in (tidx, ox, oy))
-    xs, ys = (t.to(torch.float32).contiguous() for t in (xs, ys))
-    lo, hi = torch.stack(torch.aminmax(tidx)).tolist()
-    if not 0 <= lo <= hi < n:
-        raise IndexError(f"tidx must lie in [0, {n})")
+    tidx = _as(tidx, torch.int64)
+    if ox is not None:
+        ox, oy = _as(ox, torch.int32), _as(oy, torch.int32)
+    xs, ys = _as(xs, torch.float32), _as(ys, torch.float32)
+    ok = _ok_flag(pool.device)
     lib = _library()
-    with torch.cuda.device(pool.device):
+    with (torch.cuda.device(pool.device)
+          if pool.device.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         stream = torch.cuda.current_stream(pool.device).cuda_stream
         err = lib.mosaic_warp(
-            pool.data_ptr(), int(pool.dtype == torch.bfloat16),
-            tidx.data_ptr(), ox.data_ptr(), oy.data_ptr(), xs.data_ptr(),
-            ys.data_ptr(), out.data_ptr(), b, nk, h, w, hix, hiy,
-            float(fill), stream)
+            pool.data_ptr(), int(pool.dtype == torch.bfloat16), n,
+            tidx.data_ptr(), None if ox is None else ox.data_ptr(),
+            None if oy is None else oy.data_ptr(), xs.data_ptr(),
+            ys.data_ptr(), out.data_ptr(), ok.data_ptr(), b, nk, h, w, hix,
+            hiy, float(fill), stream)
     if err != 0:
         raise RuntimeError(f"mosaic_warp kernel launch failed: cudaError {err}")
+    torch._assert_async(ok)  # a tile index outside [0, N) ends the run here
     mosaic_warp.launches += 1
     return out
 

@@ -32,6 +32,7 @@ autograd history: the TPU kernel has no VJP either (its callers sit under
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -44,6 +45,7 @@ TOPK = 10  # SimOTA's top-k: dynamic_k <= 10
 CENTER_PENALTY = 100000.0
 INVALID_PENALTY = 1e9
 MAX_B = 65535  # the kernel's grid.y
+MAX_A = 65535 * 512  # the label pass's grid.y of 512-anchor chunks
 
 
 def _class_p(logit: torch.Tensor, sig_obj: torch.Tensor) -> torch.Tensor:
@@ -133,6 +135,9 @@ def _library() -> ctypes.CDLL:
                     ptr, i64, i64, ptr, ptr, ptr, i32, i32, i32, i32,
                     ctypes.c_float, ptr, ptr, ptr, ptr, ptr])
     fn.restype = ctypes.c_int
+    size = lib.simota_workspace_floats
+    size.argtypes = [i32, i32, i32]
+    size.restype = ctypes.c_longlong
     return lib
 
 
@@ -197,18 +202,20 @@ def simota_fused(gt_boxes, gt_classes, gt_valid, pred_boxes, obj_logits,
                     ("strides", strides)):
         if not t.is_contiguous():
             raise ValueError(f"simota_fused takes a contiguous {name}")
-    if b > MAX_B or b * m >= 2 ** 31:
-        raise ValueError(f"simota_fused takes B <= {MAX_B} and B*M < 2^31, "
-                         f"got B={b}, M={m}")
+    if b > MAX_B or b * m >= 2 ** 31 or a > MAX_A:
+        raise ValueError(f"simota_fused takes B <= {MAX_B}, B*M < 2^31 and "
+                         f"A <= {MAX_A}, got B={b}, M={m}, A={a}")
     fg = torch.empty((b, a), dtype=torch.bool, device=device)
     matched = torch.empty((b, a), dtype=torch.int64, device=device)
     pred_iou = torch.empty((b, a), dtype=torch.float32, device=device)
     if b == 0:
         return fg, matched, pred_iou
-    workspace = torch.empty(3 * b * a + b * m, dtype=torch.float32,
-                            device=device)
     lib = _library()
-    with torch.cuda.device(device):
+    workspace = torch.empty(lib.simota_workspace_floats(b, m, a),
+                            dtype=torch.float32, device=device)
+    with (torch.cuda.device(device)
+          if device.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.simota_assign(
             gt_boxes.data_ptr(), gt_boxes.stride(0), gt_boxes.stride(1),

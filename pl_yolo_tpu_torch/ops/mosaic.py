@@ -45,7 +45,5 @@ def warp_sample_idx(pool: torch.Tensor, idx: torch.Tensor,
     rows into pool [N,3,H,W], coordinates valid on [0, W-1] / [0, H-1],
     `fill` outside. Returns [B,3,H,W] in the pool's dtype."""
     _, _, h, w = pool.shape
-    zeros = torch.zeros((idx.shape[0], 1), dtype=torch.int32,
-                        device=pool.device)
-    return mosaic_warp(pool, idx[:, None], zeros, zeros, xs_raw, ys_raw,
+    return mosaic_warp(pool, idx[:, None], None, None, xs_raw, ys_raw,
                        hix=w, hiy=h, fill=fill)

@@ -35,6 +35,9 @@ from pl_yolo_tpu_torch.train.optim import build_optimizer
 from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
 from tests.test_torch_train import NUM_CLASSES, _tiny_cfg
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 B, H, W, M = 4, 64, 64, 10
 BASE = dict(max_labels=20, mosaic_prob=1.0, mixup_prob=1.0, hsv_prob=1.0,
             flip_prob=0.5)

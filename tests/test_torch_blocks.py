@@ -17,6 +17,9 @@ from pl_yolo_tpu.layers import blocks as jb
 from pl_yolo_tpu_torch.bridge import load_variables
 from pl_yolo_tpu_torch.layers import blocks as tb
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -26,6 +26,9 @@ from pl_yolo_tpu_torch.models.losses import yolox as tyolox
 from pl_yolo_tpu_torch.ops import boxes as tboxes
 from pl_yolo_tpu_torch.utils.config import CONFIG_DIR, load_config
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 STRIDES, SIZE, NUM_CLASSES, MAX_LABELS = (8, 16, 32), 64, 3, 6
 
 

@@ -23,6 +23,9 @@ from pl_yolo_tpu_torch.models.detector import build_model
 from pl_yolo_tpu_torch.ops import nms as tnms
 from pl_yolo_tpu_torch.utils.config import load_config, validate_model_config
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 MAPS_TOL = dict(rtol=1e-4, atol=1e-4)
 NUM_CLASSES, SIZE = 3, 64

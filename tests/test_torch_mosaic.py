@@ -25,6 +25,9 @@ from pl_yolo_tpu.ops.pallas import mosaic_pallas as jm
 from pl_yolo_tpu_torch.ops import mosaic as tm
 from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp, warp_plain
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 B, H, W = 3, 40, 48  # not square, so that a swapped axis shows
 CANVAS_TOL = 1e-3
 
@@ -207,6 +210,9 @@ def _args(**over):
     (dict(xs=torch.zeros(B, W + 1)), ValueError),
     (dict(ys=torch.zeros(B, H, dtype=torch.int32)), TypeError),
     (dict(hix=0), ValueError),
+    (dict(ox=None), ValueError),
+    (dict(tidx=torch.full((B, 1), B, dtype=torch.int64), ox=None, oy=None),
+     IndexError),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
     with pytest.raises(err):
@@ -220,3 +226,53 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
     assert mosaic_warp.launches == before
     assert torch.equal(got, warp_plain(**args))
     assert got.dtype == torch.float32 and got.shape == (B, 3, H, W)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int16])
+def test_int64_indices_and_origins_give_the_int32_result(index_dtype):
+    """The augmentation hands over int64 tile indices; any integer dtype of
+    indices and origins gives the int32 call's result bit for bit."""
+    args = _args()
+    want = mosaic_warp(**args)
+    got = mosaic_warp(**dict(args, **{k: args[k].to(index_dtype)
+                                      for k in ("tidx", "ox", "oy")}))
+    assert torch.equal(got, want)
+
+
+def test_k1_without_origins_is_the_warp_with_zero_origins():
+    """`warp_sample_idx` hands over no origins (K=1): the result equals the
+    call with zero origins, bit for bit, and the plain version's."""
+    rng = np.random.default_rng(23)
+    pool = torch.from_numpy(_pool(rng))
+    idx = torch.from_numpy(rng.permutation(B)).to(torch.int64)[:, None]
+    xs, ys = map(torch.from_numpy, _mixup_case("scale 1.5", rng))
+    zeros = torch.zeros((B, 1), dtype=torch.int32)
+    got = mosaic_warp(pool, idx, None, None, xs, ys, W, H, 0.0)
+    assert torch.equal(got, mosaic_warp(pool, idx, zeros, zeros, xs, ys, W,
+                                        H, 0.0))
+    assert torch.equal(got, warp_plain(pool, idx, zeros, zeros, xs, ys, W,
+                                       H, 0.0))
+    assert torch.equal(got, tm.warp_sample_idx(pool, idx[:, 0], xs, ys))
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_more_than_four_tiles_match_pallas_interpret(k):
+    """K > 4 tiles (the kernel stages the taps of 4 at a time): the mosaic's
+    four tiles plus tiles shifted by thirds of a tile, summed where they
+    overlap, against the Pallas kernel at its test's bounds."""
+    rng = np.random.default_rng(30 + k)
+    pool = _pool(rng)
+    oxw, oyw, xs, ys = _mosaic_case("scale 0.5-1.5", rng)
+    more = range(1, (k + 3) // 4)
+    tidx = np.concatenate([_tidx(rng)] + [np.roll(_tidx(rng), i, 1)
+                                          for i in more], 1)[:, :k]
+    oxw = np.concatenate([oxw] + [oxw + i * W // 3 for i in more], 1)[:, :k]
+    oyw = np.concatenate([oyw] + [oyw + i * H // 3 for i in more], 1)[:, :k]
+    geo = (oxw, oyw, xs, ys)
+    got = _port_mosaic(pool, tidx, *geo)
+    pallas = np.asarray(jm.mosaic_sample_idx(
+        jnp.asarray(pool), jnp.asarray(tidx), *map(jnp.asarray, geo),
+        interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=3.0)
+    assert np.abs(got - pallas).mean() < 0.5
+    assert got.max() > 255.0  # the overlapping tiles do add up

@@ -23,6 +23,9 @@ from pl_yolo_tpu_torch.models.detector import build_model
 from pl_yolo_tpu_torch.ops.cuda.nms_suppress import nms_suppress
 from pl_yolo_tpu_torch.utils.config import load_config
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

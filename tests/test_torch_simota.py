@@ -19,6 +19,7 @@ The Pallas kernel in interpret mode takes ~10 s a call on one core, so it
 runs twice in this file: once in a module-scoped fixture, once in the loss.
 """
 
+import functools
 import sys
 from pathlib import Path
 
@@ -39,8 +40,10 @@ from pl_yolo_tpu_torch.utils.config import CONFIG_DIR, load_config
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_loss import (NUM_CLASSES, STRIDES, _assert_loss_matches,  # noqa: E402
-                             _jax_loss_and_grads, _problem,
-                             _torch_loss_and_grads)
+                             _problem, _torch_loss_and_grads)
+
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
 
 
 def _case(seed, b=2, m=10, c=7, size=128, n_valid=None, kind="random"):
@@ -77,6 +80,12 @@ def _case(seed, b=2, m=10, c=7, size=128, n_valid=None, kind="random"):
     if kind == "class out of range":
         gcls[:, ::2] = -2
         gcls[:, 1::2] = c + 3
+    if kind == "few candidates":
+        # image 0: 4x4 px labels centred 15 px outside the grid's corner,
+        # inside the centre gate of 1 + 4 anchors only (fewer than 10);
+        # image 1: labels far outside, inside no gate at all
+        gt[0, :, :2], gt[0, :, 2:] = -15.0, 4.0
+        gt[1, :, :2] = size + 500.0
     return gt, gcls, gval, preds, obj, cls, xs, ys, st
 
 
@@ -128,6 +137,8 @@ CASES = {
     "no valid label": dict(seed=3, n_valid=0),
     "class out of range": dict(seed=4, kind="class out of range"),
     "A=180, not a multiple of 128": dict(seed=5, m=13, size=96),
+    "5 and 0 candidates in two images": dict(seed=10, b=3, m=12,
+                                              kind="few candidates"),
 }
 
 
@@ -145,6 +156,39 @@ def test_plain_matches_dense_and_chunked(name, chunk):
     assert torch.equal(matched, want.matched_gt)
     np.testing.assert_allclose(piou.numpy(), want.pred_ious.numpy(),
                                rtol=0, atol=1e-6)
+
+
+def test_few_candidates_match_pallas_interpret():
+    """Rows whose image has fewer than 10 candidates, and valid rows of an
+    image with none: the k-th cost and the top-10 IoU sum reach past the
+    candidates. Against the Pallas kernel at the bounds of
+    `test_plain_matches_pallas_interpret`."""
+    args = _case(**CASES["5 and 0 candidates in two images"])
+    fg, matched, piou = (t.numpy() for t in simota_fused_plain(*_torch(args)))
+    jargs = tuple(jnp.asarray(v) for v in args)
+    jargs = (jargs[0], jargs[1].astype(jnp.int32)) + jargs[2:]
+    fg_ref, matched_ref, piou_ref = (np.asarray(o) for o in
+                                     simota_assign_pallas(*jargs,
+                                                          interpret=True))
+    assert not fg[1].any() and not fg_ref[1].any()
+    assert 0 < int(fg[0].sum()) <= 5
+    assert (fg == fg_ref).mean() > 0.999
+    both = fg & fg_ref
+    np.testing.assert_array_equal(matched[both], matched_ref[both])
+    np.testing.assert_allclose(piou[both], piou_ref[both], atol=1e-5)
+    assert abs(int(fg.sum()) - int(fg_ref.sum())) <= 2
+
+
+def test_loss_with_pallas_assign_matches_jax_few_candidates():
+    """The loss through the fused assignment against JAX's, where one image
+    has a label with 9 candidates (4x4 px, 15 px beyond the corner) and
+    another only labels outside every gate."""
+    maps, labels = _problem(11, empty_image=False)
+    labels[0, 0] = (1.0, 79.0, 79.0, 4.0, 4.0)
+    labels[2, :, 1:3] = np.where(labels[2, :, 3:4] > 0, 600.0, 0.0)
+    want = _jax_pallas_loss_and_grads(maps, labels)
+    got = _torch_loss_and_grads(maps, labels, use_l1=True, pallas_assign=True)
+    _assert_loss_matches(got, want)
 
 
 def test_ties_and_duplicate_labels_match_dense():
@@ -177,12 +221,30 @@ def test_nan_logits_end_and_claim_nothing():
     assert bool(torch.isfinite(piou).all())
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_pallas_loss():
+    """`_jax_loss_and_grads(..., use_l1=True, pallas_assign=True)` under
+    `jax.jit`: the Pallas kernel in interpret mode is traced once a shape,
+    not run op by op (16 s a call here)."""
+    def fn(outs, labels):
+        losses = jyolox.yolox_loss(outs, labels, NUM_CLASSES, STRIDES,
+                                   use_l1=True, pallas_assign=True)
+        return losses["loss"], losses
+    return jax.jit(jax.value_and_grad(fn, has_aux=True))
+
+
+def _jax_pallas_loss_and_grads(maps, labels):
+    (_, losses), grads = _jax_pallas_loss()([jnp.asarray(m) for m in maps],
+                                            jnp.asarray(labels))
+    return losses, grads
+
+
 def test_loss_with_pallas_assign_matches_jax():
     """yolox_loss(pallas_assign=True): the port's fused assignment against
     JAX's Pallas kernel in interpret mode, then the same loss and map
     gradients."""
     maps, labels = _problem(7)
-    want = _jax_loss_and_grads(maps, labels, use_l1=True, pallas_assign=True)
+    want = _jax_pallas_loss_and_grads(maps, labels)
     got = _torch_loss_and_grads(maps, labels, use_l1=True, pallas_assign=True)
     assert float(want[0]["proportion"]) > 0
     _assert_loss_matches(got, want)

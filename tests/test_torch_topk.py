@@ -16,6 +16,9 @@ from pl_yolo_tpu.ops.pallas.topk_pallas import topk_pallas
 from pl_yolo_tpu_torch.ops import topk as ttopk
 from pl_yolo_tpu_torch.ops.cuda.topk import MAX_K, topk_rows
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 
 def _rows(kind, rng, shape=(3, 7, 500)):
     if kind == "random":

@@ -37,6 +37,9 @@ from pl_yolo_tpu_torch.utils.config import (CONFIG_DIR, load_config,
                                             validate_model_config)
 from tests.test_torch_blocks import _randomize
 
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
 NUM_CLASSES, SIZE = 3, 64
 
 
