@@ -53,7 +53,23 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      the phase split of the redesigned kernels (the warp with every tile
      out of reach, the SimOTA passes with each image's candidates) and the
      augmentation's pool build, beside the first kernel versions' numbers,
-     with the card's name and power limit.
+     with the card's name and power limit;
+ 10. the trainer: a synthetic COCO set of 64 JPEGs (480x640, drawn
+     rectangles, 80 classes) in a temporary directory, and YOLOX-s at full
+     width and depth with `schedule: {no_aug_epochs: 1}`, B=16, 640^2:
+     `Trainer.fit` in this process for 3 epochs of 4 steps (validation after
+     the 2nd and 3rd) with the loader in its thread, the kernels' launches
+     counted (2 warps and 2 top-k a step, 1 NMS a validation batch) and
+     checked again in a profiler window over one augmented step and one
+     validation batch, finite losses, mAP and mAP50, at most 2 checkpoints,
+     and the restored step, optimizer state, EMA and BN statistics equal to
+     the trained ones; then `python -m pl_yolo_tpu_torch` with 4 loader
+     workers: SIGTERM in its 2nd epoch (exit 75, a checkpoint marked
+     `preempted`), `--resume` to step 12, and `--test --ckpt`, which prints
+     mAP; the epoch images/s through the loader with 0 and 4 workers, the
+     epoch's images/s without the loader's wait, the loader alone, the
+     bare step alone and beside a decoding loader, and the validation's
+     time a batch (forward + decode, postprocess, COCO evaluation).
 
 The line before the last is the `kernels` JSON record, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -64,9 +80,14 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -120,6 +141,12 @@ SIMOTA_PASSES = ("anchor", "label", "label_merge", "assign")
 # a bias after 4 SGD steps vs the same steps redone by hand from its
 # recorded gradients: fp32 rounding of a few multiply-adds
 UPDATE_TOL = 1e-5  # on max |change - by hand| / max |change|
+# phase 10: the trainer on JPEGs through the loader, 4 steps an epoch
+TRAINER_IMAGES, TRAINER_EPOCHS, JPEG_HW = 64, 3, (480, 640)
+TRAINER_STEPS = TRAINER_EPOCHS * TRAINER_IMAGES // BATCH
+STEP_SPLIT_STEPS = 4  # a timing of the bare step beside a busy loader
+EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
+                        r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
 
 def log(msg: str) -> None:
@@ -686,6 +713,412 @@ def simota_inputs(torch, maps, labels, strides):
             (in_box | in_center).any(dim=1), cxcywh2xyxy(d.preds[..., :4]),
             *yolox._cls_cost_terms(d.preds[..., 4], d.preds[..., 5:]))
     return pair_iou, cost
+
+
+def write_coco(root: Path, n: int, num_classes: int, seed: int = 0) -> None:
+    """A COCO set under `root`: `n` JPEGs of 480x640 on a plain ground, each
+    with 1-5 filled rectangles of random classes, and their annotations."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    h, w = JPEG_HW
+    images, anns = [], []
+    for i in range(n):
+        img = Image.new("RGB", (w, h), tuple(rng.integers(0, 256, 3).tolist()))
+        draw = ImageDraw.Draw(img)
+        for _ in range(int(rng.integers(1, 6))):
+            bw, bh = int(rng.integers(24, w // 2)), int(rng.integers(24, h // 2))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            draw.rectangle([x, y, x + bw, y + bh],
+                           fill=tuple(rng.integers(0, 256, 3).tolist()))
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(rng.integers(1, num_classes + 1)),
+                         "bbox": [x, y, bw, bh], "area": bw * bh,
+                         "iscrowd": 0})
+        img.save(root / "images" / f"{i:04d}.jpg", quality=90)
+        images.append({"id": i + 1, "file_name": f"{i:04d}.jpg",
+                       "height": h, "width": w})
+    (root / "annotations" / "instances.json").write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": c + 1, "name": f"class{c}"}
+                       for c in range(num_classes)]}))
+
+
+def trainer_configs(load_config, root: Path, workers: int):
+    """(model cfg, data cfg): yolox_s.yaml with the no-aug schedule cut to
+    the last epoch, and coco2017.yaml pointed at `root`, B=16, 640^2."""
+    model = load_config(CONFIG)
+    model["schedule"]["no_aug_epochs"] = 1
+    data = load_config(ROOT / "pl_yolo_tpu_torch/configs/data/coco2017.yaml")
+    data["dataset"].update(
+        dir=str(root), train="images", val="images", test="images",
+        train_json="annotations/instances.json",
+        val_json="annotations/instances.json",
+        test_json="annotations/instances.json", train_size=[SIZE, SIZE],
+        val_size=[SIZE, SIZE], train_batch_size=BATCH, val_batch_size=BATCH,
+        num_workers=workers)
+    return model, data
+
+
+def kernel_wrappers() -> dict:
+    """The kernels' wrappers by name; each counts its launches."""
+    from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp
+    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import nms_suppress
+    from pl_yolo_tpu_torch.ops.cuda.simota import simota_fused
+    from pl_yolo_tpu_torch.ops.cuda.topk import topk_rows
+    return {"mosaic_warp": mosaic_warp, "topk_rows": topk_rows,
+            "nms_suppress": nms_suppress, "simota_assign": simota_fused}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def run_cli(args, timeout: float, sigterm_after: str | None = None):
+    """Run `python -m pl_yolo_tpu_torch args` from the repo root; with
+    `sigterm_after`, send SIGTERM once a line of its output starts with it.
+    Returns (exit code, output lines); the child is killed on a timeout."""
+    cmd = [sys.executable, "-m", "pl_yolo_tpu_torch", *args]
+    child = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    lines, seen = [], threading.Event()
+
+    def read():
+        for line in child.stdout:
+            lines.append(line.rstrip("\n"))
+            if sigterm_after and line.startswith(sigterm_after):
+                seen.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if sigterm_after is not None:
+            if not seen.wait(timeout):
+                raise AssertionError(f"no line '{sigterm_after}' within "
+                                     f"{timeout} s: " + "\n".join(lines[-20:]))
+            child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout)
+        reader.join(10)
+    except BaseException:
+        child.kill()
+        child.wait()
+        raise
+    return rc, lines
+
+
+def epoch_lines(lines) -> dict:
+    """{epoch: (s, img/s, loss, img/s without the loader's wait)} from the
+    trainer's epoch lines."""
+    out = {}
+    for line in lines:
+        m = EPOCH_LINE.match(line)
+        if m:
+            out[int(m[1])] = (float(m[2]), float(m[3]), float(m[4]),
+                              float(m[5]))
+    return out
+
+
+def phase_trainer(torch, card: str, device) -> None:
+    """Phase 10 (see the module docstring), on `device`."""
+    import csv
+    import itertools
+    from torch.profiler import ProfilerActivity, profile
+    from pl_yolo_tpu_torch.train.checkpoint import CheckpointManager
+    from pl_yolo_tpu_torch.train.trainer import Trainer
+    from pl_yolo_tpu_torch.utils.config import load_config
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        write_coco(tmp / "coco", TRAINER_IMAGES, NUM_CLASSES)
+        model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        note(f"trainer: fit in process ({TRAINER_EPOCHS} epochs)")
+        trainer = Trainer(copy.deepcopy(model_cfg), copy.deepcopy(data_cfg),
+                          max_epochs=TRAINER_EPOCHS, check_val_every_n_epoch=2,
+                          output_dir=str(tmp / "runs"), experiment_name="fit",
+                          logger="csv", seed=0, device=device,
+                          # the losses at each epoch's last step, where the
+                          # epoch's own sync is: no sync of its own a step
+                          log_every_n_steps=TRAINER_STEPS // TRAINER_EPOCHS)
+        reset_launch_counts()
+        trainer.fit()
+        sync()
+        counts = launch_counts()
+        val_batches = math.ceil(TRAINER_IMAGES / BATCH)
+        want = {"mosaic_warp": 2 * TRAINER_STEPS,
+                "topk_rows": 2 * TRAINER_STEPS,
+                "nms_suppress": 2 * val_batches, "simota_assign": 0}
+        if counts != want:
+            raise AssertionError(f"Trainer.fit launched {counts}, not {want}")
+        if trainer.state.step != TRAINER_STEPS:
+            raise AssertionError(f"fit ended at step {trainer.state.step}")
+        rows = list(csv.DictReader(open(trainer.out_dir / "logs/metrics.csv")))
+        losses = [float(r["loss"]) for r in rows if r.get("loss")]
+        maps = [(float(r["mAP"]), float(r["mAP50"])) for r in rows
+                if r.get("mAP")]
+        epochs = {i: r for i, r in enumerate(r for r in rows
+                                             if r.get("loss_epoch"))}
+        if len(losses) != TRAINER_EPOCHS or not all(map(math.isfinite,
+                                                        losses)):
+            raise AssertionError(f"fit's losses: {losses}")
+        if len(maps) != 2 or not all(math.isfinite(v) and v >= 0
+                                     for m in maps for v in m):
+            raise AssertionError(f"fit's mAP, mAP50: {maps}")
+        kept = sorted(int(d.name) for d in (trainer.out_dir / "checkpoints")
+                      .iterdir() if d.name.isdigit())
+        if not 1 <= len(kept) <= 2 or kept[-1] != TRAINER_STEPS:
+            raise AssertionError(f"checkpoints kept: {kept}")
+        et = trainer.eval_times
+        log(f"[trainer] fit: {TRAINER_EPOCHS} epochs x "
+            f"{TRAINER_STEPS // TRAINER_EPOCHS} steps of YOLOX-s at B={BATCH} "
+            f"{SIZE}^2 from {TRAINER_IMAGES} JPEGs of {JPEG_HW[0]}x"
+            f"{JPEG_HW[1]}; losses at the epochs' ends "
+            + ", ".join(f"{v:.3f}" for v in losses)
+            + "; mAP, mAP50 " + "; ".join(f"{a:.5f}, {b:.5f}" for a, b in maps)
+            + f"; launches {counts}; checkpoints kept {kept}")
+        for i, r in epochs.items():
+            log(f"[time] trainer epoch {i} ({'mosaic/mixup on' if i < 2 else 'no-aug'}"
+                f", loader thread, 0 workers): {float(r['epoch_img_s']):.1f} "
+                f"images/s from JPEG decode through the loader to the step; "
+                f"{float(r['step_img_s']):.1f} images/s without the "
+                f"{float(r['loader_wait_s']):.3f} s the loop waited for the "
+                f"loader, on {card}")
+        log(f"[time] trainer validation in fit ({et['detections']} "
+            f"detections), a batch of {BATCH} (mean of "
+            f"{et['batches'] - 1} after the first): forward + decode "
+            f"{et['infer_s'] * 1e3:.2f} ms, postprocess {et['nms_s'] * 1e3:.2f} "
+            f"ms, formatting {et['format_s'] / et['batches'] * 1e3:.2f} ms, "
+            f"COCO evaluation {et['coco_eval_s'] / et['batches'] * 1e3:.2f} "
+            f"ms ({et['coco_eval_s']:.3f} s for {TRAINER_IMAGES} images) on "
+            f"{card}")
+
+        note("trainer: restore")
+        again = Trainer(copy.deepcopy(model_cfg), copy.deepcopy(data_cfg),
+                        max_epochs=TRAINER_EPOCHS,
+                        output_dir=str(tmp / "runs"), experiment_name="fit",
+                        logger="csv", seed=1, device=device)
+        again.state = again._build_state(TRAINER_STEPS)
+        again._steps_per_epoch = TRAINER_STEPS // TRAINER_EPOCHS
+        # validation at the NMS's full load: at conf 1e-6 the random init
+        # (heads at their prior, 1e-4) passes every candidate, so 300
+        # detections an image reach the COCO evaluation (the model trained
+        # 12 steps from it scores nothing above 1e-6)
+        note("trainer: validation of the random init")
+        ap, ap50 = again.validate(conf=CONF_TRAINED)
+        et = again.eval_times
+        if not (math.isfinite(ap) and math.isfinite(ap50) and ap >= 0
+                and ap50 >= 0 and et["detections"] > 0):
+            raise AssertionError(f"validate on the random init: mAP {ap}, "
+                                 f"mAP50 {ap50}, {et['detections']} "
+                                 f"detections")
+        log(f"[time] trainer validation of the random init at conf "
+            f"{CONF_TRAINED} ({et['detections']} detections, mAP {ap:.6f}, mAP50 "
+            f"{ap50:.6f}), a batch of {BATCH} (mean of {et['batches'] - 1} "
+            f"after the first): forward + decode {et['infer_s'] * 1e3:.2f} "
+            f"ms, postprocess {et['nms_s'] * 1e3:.2f} ms, formatting "
+            f"{et['format_s'] / et['batches'] * 1e3:.2f} ms, COCO evaluation "
+            f"{et['coco_eval_s'] / et['batches'] * 1e3:.2f} ms "
+            f"({et['coco_eval_s']:.3f} s for {TRAINER_IMAGES} images) on "
+            f"{card}")
+        if again._restore(None, resume=True) != TRAINER_EPOCHS:
+            raise AssertionError("restore gave the wrong epoch to go on from")
+        got, ref = again.state, trainer.state
+        if not got.step == got.optimizer.updates == ref.step:
+            raise AssertionError(f"restored step {got.step}, updates "
+                                 f"{got.optimizer.updates}, saved {ref.step}")
+        pairs = [(got.module.state_dict(), ref.module.state_dict()),
+                 (got.ema_module.state_dict(), ref.ema_module.state_dict())]
+        a, b = got.optimizer.state_dict(), ref.optimizer.state_dict()
+        pairs.append(({i: v["momentum_buffer"] for i, v in a["state"].items()},
+                      {i: v["momentum_buffer"] for i, v in b["state"].items()}))
+        for x, y in pairs:
+            if x.keys() != y.keys() or not all(torch.equal(x[k], y[k])
+                                               for k in x):
+                raise AssertionError("a restored tensor differs from the "
+                                     "trained one")
+        if a["param_groups"] != b["param_groups"] or not a["state"]:
+            raise AssertionError("restored optimizer groups differ")
+        log(f"[trainer] restore: step {got.step}, the optimizer's "
+            f"{len(a['state'])} momentum buffers, the module's and the EMA's "
+            f"{len(pairs[0][0])} tensors (BN statistics among them) equal to "
+            f"the trained ones")
+        del again, got, pairs, a, b
+
+        # the loader alone: JPEG decode and letterbox, once the prefetch
+        # buffers are drained (the epochs above are too short to show it)
+        note("trainer: the loader alone")
+        for workers in (0, 4):
+            trainer.datamodule.num_workers = workers
+            loader = trainer.datamodule.train_loader()
+            try:
+                for _ in range(4):
+                    next(loader)
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    next(loader)
+                dt = time.perf_counter() - t0
+            finally:
+                loader.close()
+            log(f"[time] the train loader alone, {workers} workers: "
+                f"{8 * BATCH / dt:.1f} images/s of JPEG decode, letterbox "
+                f"and collation ({JPEG_HW[0]}x{JPEG_HW[1]} to {SIZE}^2; 8 "
+                f"batches after 4) on the host of {card}")
+        trainer.datamodule.num_workers = 0
+
+        # one augmented step and one validation batch in a profiler window
+        note("trainer: profiler window")
+        loader = trainer.datamodule.train_loader()
+        batch = next(loader)
+        loader.close()
+        images = torch.from_numpy(batch["images"]).to(device)
+        labels = torch.from_numpy(batch["labels"]).to(device)
+        step_fn = trainer.make_step()
+        gen = torch.Generator(device=device).manual_seed(7)
+        step_fn(trainer.state, images, labels, generator=gen,
+                aug_enable=True, use_l1=False)  # warm
+        sync()
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(trainer.state, images, labels, generator=gen,
+                    aug_enable=True, use_l1=False)
+            trainer._run_eval(itertools.islice(
+                trainer.datamodule.val_batches(), 1),
+                trainer.state.eval_module, 0.01, 0.65,
+                dataset=trainer.datamodule.dataset_val)
+            sync()
+        after = launch_counts()
+        window = {k: after[k] - before[k] for k in after}
+        want = {"mosaic_warp": 2, "topk_rows": 2, "nms_suppress": 1,
+                "simota_assign": 0}
+        if window != want:
+            raise AssertionError(f"profiler window launched {window}, "
+                                 f"not {want}")
+        traced = {}
+        for name, kernel in (("mosaic_warp", "mosaic_warp_kernel"),
+                             ("topk_rows", "topk_rows_kernel"),
+                             ("nms_suppress", "nms_sweep_kernel")):
+            traced[name] = sum(e.count for e in prof.key_averages()
+                               if e.device_type == torch.autograd.DeviceType
+                               .CUDA and kernel in e.key)
+            if traced[name] > window[name] or (
+                    0 < traced[name] < window[name]):
+                raise AssertionError(f"the trace holds {traced[name]} "
+                                     f"{kernel} launches, the wrapper "
+                                     f"counted {window[name]}")
+        log(f"[trainer] profiler window (one augmented step, one validation "
+            f"batch): launches counted by the wrappers {window}; kernels in "
+            f"the trace {traced} (0: dropped from this trace)")
+
+        # the fit loop's step rate against the bare step's, one device
+        # batch over and over, alone and with a train loader decoding
+        # beside it (a thread of this process, or 4 worker processes,
+        # drained by a thread that drops its batches): how much of the
+        # epoch's time the host's decoding takes from the dispatch
+        note("trainer: the step beside a decoding loader")
+        rates = {}
+        for what, workers in (("alone", None), ("0 workers", 0),
+                              ("4 workers", 4), ("alone again", None)):
+            stop, loader, drain = threading.Event(), None, None
+            if workers is not None:
+                trainer.datamodule.num_workers = workers
+                loader = trainer.datamodule.train_loader()
+
+                def drop(loader=loader, stop=stop):
+                    while not stop.is_set():
+                        next(loader)
+                drain = threading.Thread(target=drop, daemon=True)
+                drain.start()
+                time.sleep(0.5)  # the loader under way
+            try:
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(STEP_SPLIT_STEPS):
+                    step_fn(trainer.state, images, labels, generator=gen,
+                            aug_enable=True, use_l1=False)
+                sync()
+                rates[what] = STEP_SPLIT_STEPS * BATCH / (
+                    time.perf_counter() - t0)
+            finally:
+                stop.set()
+                if loader is not None:
+                    drain.join(10)
+                    loader.close()
+        trainer.datamodule.num_workers = 0
+        log(f"[time] the fit loop's augmented step on one device batch, "
+            f"{STEP_SPLIT_STEPS} steps each: "
+            + ", ".join(f"{what} {ips:.1f} images/s"
+                        for what, ips in rates.items())
+            + f" (a train loader decoding beside it) on {card}")
+        del trainer, images, labels, step_fn
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # the CLI, with 4 loader workers
+        model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 4)
+        import yaml
+        (tmp / "model.yaml").write_text(yaml.safe_dump(model_cfg))
+        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+        args = ["-c", str(tmp / "model.yaml"), "-d", str(tmp / "data.yaml"),
+                "--max_epochs", str(TRAINER_EPOCHS), "--logger", "csv",
+                "--output_dir", str(tmp / "runs"), "-n", "cli"]
+        if device.type != "cuda":  # the CLI's default is the card
+            args += ["--device", str(device)]
+        ckpts = tmp / "runs" / "cli" / "checkpoints"
+        note("trainer: CLI, SIGTERM in the second epoch")
+        rc, first = run_cli(args, 300, sigterm_after="epoch 0:")
+        steps = sorted(int(d.name) for d in ckpts.iterdir()
+                       if d.name.isdigit())
+        spe = TRAINER_STEPS // TRAINER_EPOCHS
+        if rc != 75 or len(steps) != 1 or not spe < steps[0] < 2 * spe:
+            raise AssertionError(f"preempted CLI: exit {rc}, checkpoints "
+                                 f"{steps}:\n" + "\n".join(first[-30:]))
+        marked = json.loads((ckpts / str(steps[0]) / "metrics.json")
+                            .read_text())
+        if marked.get("preempted") != 1.0:
+            raise AssertionError(f"the preemption checkpoint says {marked}")
+        note("trainer: CLI --resume")
+        rc, resumed = run_cli([*args, "--resume"], 300)
+        mgr = CheckpointManager(ckpts)
+        kept = sorted(int(d.name) for d in ckpts.iterdir()
+                      if d.name.isdigit())
+        if rc != 0 or mgr.latest_step != TRAINER_STEPS or len(kept) > 2:
+            raise AssertionError(f"resumed CLI: exit {rc}, checkpoints "
+                                 f"{kept}:\n" + "\n".join(resumed[-30:]))
+        if mgr.restore()["step"] != TRAINER_STEPS:
+            raise AssertionError("the resumed run's last checkpoint is not "
+                                 f"at step {TRAINER_STEPS}")
+        note("trainer: CLI --test")
+        rc, tested = run_cli([*args, "--test", "--ckpt", str(ckpts)], 300)
+        test_map = [line for line in tested if line.startswith("mAP = ")]
+        if rc != 0 or not test_map:
+            raise AssertionError(f"--test: exit {rc}:\n"
+                                 + "\n".join(tested[-30:]))
+        log(f"[trainer] CLI: SIGTERM in epoch 1 -> exit 75 with a preemption "
+            f"checkpoint at step {steps[0]}; --resume -> exit 0 at step "
+            f"{mgr.latest_step}, checkpoints kept {kept}; --test -> "
+            f"'{test_map[-1]}'")
+        for what, lines in (("first run", first), ("resumed run", resumed)):
+            for i, (dt, ips, loss, step_ips) in epoch_lines(lines).items():
+                log(f"[time] trainer epoch {i} of the CLI's {what} "
+                    f"({'mosaic/mixup on' if i < 2 else 'no-aug'}, 4 loader "
+                    f"workers): {ips:.1f} images/s from JPEG decode through "
+                    f"the loader to the step ({dt:.1f} s); {step_ips:.1f} "
+                    f"images/s without the loader's wait, on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[trainer] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1677,6 +2110,10 @@ def main() -> int:
 
     def simota_mean(key):
         return sum(r[key] for r in simota_recs.values()) / len(simota_recs)
+
+    # 10. the trainer, in process and through the CLI
+    note("trainer")
+    phase_trainer(torch, card, dev)
 
     log(card)
     log(json.dumps({"kernels": [{

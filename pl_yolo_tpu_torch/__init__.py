@@ -25,6 +25,19 @@ SimOTA assignment as one hand-written CUDA kernel
 (`ops.simota.simota_assign_fused`, `csrc/simota_assign.cu`) in place of the
 dense [B,M,A] path and its top-k launches.
 
+Slice 5 redesigned two kernels: the mosaic warp computes its taps once a
+block and checks its tile indices on the card without a host read-back, and
+the SimOTA assignment skips the costs that cannot decide an assignment.
+
+Slice 6 covers the program a user starts, `python -m pl_yolo_tpu_torch -c
+<model.yaml> -d <data.yaml>` (`__main__`): the host data side (datasets,
+the loader and its pinned, non-blocking `device_prefetch`, the data
+modules), COCO and VOC evaluation, checkpoints (`train.checkpoint`), and
+`train.trainer.Trainer` with `fit`, `validate` and `test`, which drive the
+kernels above on decoded JPEGs. The numpy / PIL modules of the JAX package
+that import no JAX are kept here as copies, which a test holds to their
+originals.
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

@@ -86,7 +86,8 @@ def check_config(cfg: AugmentConfig) -> None:
     if not cfg.separable:
         raise NotImplementedError(
             "degrees, shear and perspective != 0 need the general-gather "
-            "augmentation path, which is not ported")
+            "augmentation path, which is not ported yet (ROADMAP queue A, "
+            "item 11)")
     if cfg.use_pallas not in ("auto", "on"):
         raise ValueError(
             f"use_pallas={cfg.use_pallas!r}: the port has one sampling route "

@@ -18,6 +18,10 @@ from ...layers.blocks import (ConvBlock, CSPLayer, DWConvBlock, Focus,
 
 
 class CSPDarkNet(nn.Module):
+    # the Focus stem can take the augmentation's space-to-depth output
+    # directly (layers.blocks.stem_input_s2d); the trainer feeds it so
+    STEM_S2D = True
+
     def __init__(self, depths: Sequence[int] = (3, 9, 9, 3),
                  channels: Sequence[int] = (64, 128, 256, 512, 1024),
                  outputs: Sequence[str] = ("stage2", "stage3", "stage4"),

@@ -60,7 +60,7 @@ def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int
     if accum > 1:
         raise NotImplementedError(
             "optimizer: {accumulate_steps: N} is not ported yet (ROADMAP "
-            "queue A, item 5: accumulate_steps)")
+            "queue A, item 8: accumulate_steps)")
     total_steps = max(total_steps, 1)
     schedule = cosine_warmup_schedule(
         base_lr=lr,

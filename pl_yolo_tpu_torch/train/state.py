@@ -84,8 +84,9 @@ def make_train_step(
     to `augment_fn`/`loss_fn` only when those accept them. `generator` seeds
     the augmentation. With `sanitize`, the losses also carry `grad_norm`
     (global) and `nonfinite_grads` (element count). The returned losses are
-    detached tensors on the device; the step forces no host sync of its
-    own (the mosaic warp reads its tile indices back to check them).
+    detached tensors on the device; the step forces no host sync (the
+    mosaic warp checks its tile indices on the card, with a device-side
+    assert).
 
     `apply_fn` is the JAX step's, with the module in place of the
     variables (the state holds the module, in train mode). `donate`,

@@ -152,5 +152,5 @@ def test_port_never_imports_jax():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
                                "pl_yolo_tpu"), f"{path}: imports {name}"

@@ -476,10 +476,13 @@ def test_train_state_follows_the_module_and_models_default_to_cuda():
 
 # ------------------------------------------------------------- config copies
 
-@pytest.mark.parametrize("path", sorted((CONFIG_DIR / "model").glob("*.yaml")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize(
+    "path", sorted((CONFIG_DIR / "model").glob("*.yaml"))
+    + sorted((CONFIG_DIR / "data").glob("*.yaml")),
+    ids=lambda p: p.name if p.parent.name == "model" else f"data/{p.name}")
 def test_config_copy_equals_the_jax_packages(path):
-    original = CONFIG_DIR.parents[1] / "pl_yolo_tpu" / "configs" / "model" / path.name
+    original = (CONFIG_DIR.parents[1] / "pl_yolo_tpu" / "configs"
+                / path.parent.name / path.name)
     assert load_config(path) == yaml.safe_load(original.read_text())
     assert path.read_bytes() == original.read_bytes()
 
