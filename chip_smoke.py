@@ -7,16 +7,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   1. device: the card's name and power limit from nvidia-smi;
   2. build: compile every CUDA kernel of the paths from `pl_yolo_tpu_torch/csrc`
      (four: NMS suppression, row top-k, mosaic warp, fused SimOTA
-     assignment), all `nvcc`s at once;
+     assignment), all `nvcc`s at once, with ptxas's registers and spills;
   3. kernels: each kernel against its plain PyTorch version on the card (the
-     row top-k also against `torch.topk`; the mosaic warp in bf16 and fp32
-     pools, through both entries, at B=16 640^2 and at 2x3x72x88, with
-     K=4 and 1 as the path calls it and K=5 and 8 overlapping tiles; the
-     SimOTA assignment on 11 synthetic cases, NaN logits and images with no
-     or 9 candidates among them); both warp entries captured in a CUDA graph
-     at B=16 640^2 and replayed, equal to an eager call (a host read-back in
-     the wrapper would make the capture fail); and a tile index outside the
-     pool, in a child process, ending it with a device-side assert;
+     row top-k also against `torch.topk`, on the rows SimOTA sends and on
+     rows a lane-split pass can get wrong: ascending, descending, all
+     equal, the top k in one lane's share, odd A, k = 1..16; the mosaic
+     warp in bf16 and fp32 pools, through both entries, at B=16 640^2 and
+     at 2x3x72x88, with K=4 and 1 as the path calls it and K=5 and 8
+     overlapping tiles; the SimOTA assignment on 11 synthetic cases, NaN
+     logits and images with no or 9 candidates among them); both warp
+     entries captured in a CUDA graph at B=16 640^2 and replayed, equal to
+     an eager call (a host read-back in the wrapper would make the capture
+     fail); and a tile index outside the pool, in a child process, ending it
+     with a device-side assert;
   4. serving: `build_model(yolox_s.yaml, 80 classes)` from a seeded random
      init, 4 requests of [16,640,640,3] images through eval forward,
      `eval_decode` and `postprocess`, in the config's bf16 and in fp32 (TF32
@@ -37,7 +40,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      model under `stem_input_s2d()`, from uint8 images, bf16, B=16, 640^2:
      4 steps and one with `aug_enable=False`; finite losses, anchors
      assigned, two mosaic-warp and two top-k launches a step; the card's
-     augmented batch against the CPU's on the same draws;
+     augmented batch against the CPU's on the same draws; the top-k kernel
+     against `torch.topk` on this batch's own pair-IoU and cost (M=100);
   8. training with `loss: {pallas_assign: true}` (the fused assignment
      kernel): 4 bf16 steps as in phase 5 and 4+1 augmented steps as in phase
      7; finite losses, anchors assigned, one fused-assignment launch and no
@@ -49,7 +53,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      assignment (interleaved, with each variant's device busy time), the
      assignment alone (fused, dense, chunked), the augmentation alone, the
      train steps' split and device profiles, and each kernel's time beside
-     its bound, its plain version's time and the PyTorch library call's,
+     its bound, its plain version's time and the PyTorch library call's
+     (the top-k on the M=50 and M=100 inputs with the L2 cold and warm, with
+     its host time a call, and inside both train steps' profiler windows),
      the phase split of the redesigned kernels (the warp with every tile
      out of reach, the SimOTA passes with each image's candidates) and the
      augmentation's pool build, beside the first kernel versions' numbers,
@@ -96,6 +102,10 @@ CONFIG = ROOT / "pl_yolo_tpu_torch" / "configs" / "model" / "yolox_s.yaml"
 BATCH, SIZE, NUM_CLASSES, REQUESTS = 16, 640, 80, 4
 TRAIN_STEPS, MAX_LABELS, BOXES_PER_IMAGE, TOTAL_STEPS = 4, 50, 8, 1000
 TOPK_K = 10  # SimOTA's k, for both of a step's launches
+MAX_K = 16  # the top-k kernel's largest k
+# a buffer this large (2.5x the H100's 50 MB L2) is written before each
+# launch timed "L2 cold", so that the launch finds none of its input there
+L2_FLUSH_BYTES = 128 << 20
 AUG_STEPS, AUG_MAX_LABELS = 4, 100  # the augmented steps, as bench.py's
 # the card's augmented batch vs the CPU's from the same draws and inputs:
 # the label math (3x3 products, divisions) may round differently by an ulp,
@@ -171,6 +181,19 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+def ptxas_summary(log: str) -> str:
+    """ptxas's `-v` report of one source (`build.LOGS`) in a line."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    stack = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
+    spill = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers a "
+            f"thread, stack frames up to {max(stack, default=0)} B, spill "
+            f"stores + loads up to {max(spill, default=0)} B")
+
+
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     """Mean ms per call of `fn` on the current stream, by CUDA events."""
     for _ in range(warmup):
@@ -186,9 +209,10 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, iters: int, top: int = 14):
+def device_profile(torch, fn, iters: int, top: int | None = 14):
     """Device time per call of `fn` from a torch.profiler trace: the busy
-    ms (sum of kernel self times) and the `top` kernels by time."""
+    ms (sum of kernel self times) and the `top` kernels by time (None:
+    all)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -218,7 +242,7 @@ def kernel_device_ms(torch, fn, names, iters: int = 20, traces: int = 3):
     traces that hold it, and is None if none does."""
     found = {n: [] for n in names}
     for _ in range(traces):
-        _, kernels = device_profile(torch, fn, iters, 16)
+        _, kernels = device_profile(torch, fn, iters, None)
         for n in names:
             ms = next((ms for k, ms in kernels if n in k), None)
             if ms is not None:
@@ -301,6 +325,27 @@ def topk_cases(torch, dev):
     cases.append(("non-contiguous", torch.randn((a, 40), generator=g).t(),
                   TOPK_K))
     cases.append(("bf16 (cast path)", x.to(torch.bfloat16), TOPK_K))
+    # rows that a pass split over lanes, with a running list each, can get
+    # wrong: every value inserting, none after the first, k copies spread
+    # over every lane, the whole top k in one lane's share (16-byte chunks
+    # 1536 entries apart fall to thread 0 at 32, 64, 96 or 128 threads a
+    # row) and row starts off 16-byte alignment
+    up = (torch.arange(a, dtype=torch.float32)[None, :]
+          + torch.arange(rows, dtype=torch.float32)[:, None])
+    cases.append(("ascending rows", up, TOPK_K))
+    cases.append(("descending rows", up.flip(-1), TOPK_K))
+    same = torch.randn((rows, 1), generator=g).expand(rows, a)
+    cases.append(("all-equal rows", same.contiguous(), MAX_K))
+    one = torch.randn((rows, a), generator=g)
+    lane0 = (1536 * torch.arange(4)[:, None] + torch.arange(4)).flatten()
+    one[:, lane0] = 10.0 + torch.rand((rows, MAX_K), generator=g)
+    cases.append(("top 16 in one lane's share", one, MAX_K))
+    cases.append(("top 10 of 16 in one lane's share", one, TOPK_K))
+    for odd in (a - 1, 2101):
+        cases.append((f"A={odd} (misaligned row starts)",
+                      torch.randn((rows, odd), generator=g), TOPK_K))
+    cases.extend((f"random k={k}", x, k) for k in range(2, MAX_K)
+                 if k != TOPK_K)
     return [(n, v.to(dev), k) for n, v, k in cases]
 
 
@@ -713,6 +758,26 @@ def simota_inputs(torch, maps, labels, strides):
             (in_box | in_center).any(dim=1), cxcywh2xyxy(d.preds[..., :4]),
             *yolox._cls_cost_terms(d.preds[..., 4], d.preds[..., 5:]))
     return pair_iou, cost
+
+
+def augmented_simota_inputs(torch, module, img_s2d, labels, strides):
+    """`simota_inputs` of an augmented batch: the model under
+    `stem_input_s2d()` on its s2d images, the maps widened to fp32."""
+    from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
+    with torch.no_grad(), stem_input_s2d():
+        maps = [m.float() for m in module(img_s2d)]
+    return simota_inputs(torch, maps, labels, strides)
+
+
+def l2_cold(torch, fn):
+    """`fn` preceded by a write of L2_FLUSH_BYTES to a scratch buffer: the
+    L2 cache then holds none of `fn`'s inputs when its launch starts."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def run():
+        scratch.zero_()
+        return fn()
+    return run
 
 
 def write_coco(root: Path, n: int, num_classes: int, seed: int = 0) -> None:
@@ -1162,6 +1227,8 @@ def main() -> int:
     build.build(["nms_suppress", "topk_rows", "mosaic_warp", "simota_assign"])
     log(f"[build] nms_suppress, topk_rows, mosaic_warp and simota_assign "
         f"built in {time.perf_counter() - t0:.2f} s")
+    for name, out in build.LOGS.items():
+        log(f"[ptxas] {name}: {ptxas_summary(out)}")
 
     # 3. kernels against their plain versions
     max_err = 0
@@ -1512,12 +1579,13 @@ def main() -> int:
     with torch.no_grad():
         maps16 = [m.float() for m in model.module(images)]
     pair_iou, cost = simota_inputs(torch, maps16, labels, strides)
-    topk_inputs = (("pair_iou", pair_iou), ("-cost", -cost))
-    for name, x in topk_inputs:
+    topk_inputs = {"pair_iou M=50": pair_iou, "-cost M=50": -cost}
+    for name, x in topk_inputs.items():
         topk_err = max(topk_err, check_topk(f"the training path's {name}",
                                             x, TOPK_K))
     log(f"[kernel] topk_rows == plain == torch.topk on the training path's "
         f"pair_iou and -cost {tuple(cost.shape)}")
+    del pair_iou, cost
 
     # 7. training with augmentation, wired as bench.py wires it
     note("training with augmentation")
@@ -1551,6 +1619,17 @@ def main() -> int:
             and float(pix.mean()) <= AUG_PIXEL_TOL[1]):
         raise AssertionError("the card's augmentation != the CPU's")
     del cpu_img, pix
+    # the top-k kernel on the augmented step's own inputs (M=100), from the
+    # augmented batch's maps and labels as phase 6 takes the M=50 ones
+    pair_iou, cost = augmented_simota_inputs(
+        torch, models["float32"].module, card_img, card_lab.to(dev), strides)
+    topk_inputs.update({"pair_iou M=100": pair_iou, "-cost M=100": -cost})
+    for name in ("pair_iou M=100", "-cost M=100"):
+        topk_err = max(topk_err, check_topk(
+            f"the augmented step's {name}", topk_inputs[name], TOPK_K))
+    log(f"[kernel] topk_rows == plain == torch.topk on the augmented step's "
+        f"pair_iou and -cost {tuple(cost.shape)}")
+    del pair_iou, cost
 
     def s2d_apply(module, x):
         with stem_input_s2d():
@@ -1931,39 +2010,65 @@ def main() -> int:
 
     def topk_record(x):
         rows, a = x.shape[0] * x.shape[1], x.shape[2]
-        # a row needs one scan (a compare and a max per entry) for each
-        # distinct value among its top k, and the load's max: what this
-        # input needs, not the k scans a row of distinct values would
-        top = torch.topk(x, TOPK_K, dim=-1).values
-        scans = int((top[..., 1:] != top[..., :-1]).sum()) + 2 * rows
-        bound = {"operations": 2.0 * a * scans / PEAK_FP32_FLOPS * 1e3,
+        # every entry is compared at least once; the bytes bound it
+        bound = {"operations": rows * a / PEAK_FP32_FLOPS * 1e3,
                  "bytes": (rows * a + rows * TOPK_K) * 4 / PEAK_BYTES * 1e3}
         bound_by = max(bound, key=bound.get)
+
+        def call():
+            return topk_rows(x, TOPK_K)
+
+        def device(fn):
+            return kernel_device_ms(torch, fn, ("topk_rows_kernel",))[
+                "topk_rows_kernel"]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 100
+        torch.cuda.synchronize()
         return dict(
-            ms=cuda_ms(torch, lambda: topk_rows(x, TOPK_K), iters=50),
-            device_ms=kernel_device_ms(torch, lambda: topk_rows(x, TOPK_K),
-                                       ("topk_rows_kernel",))[
-                                           "topk_rows_kernel"],
+            ms=cuda_ms(torch, call, iters=50), host_ms=host_ms,
+            device_ms=device(call), cold_ms=device(l2_cold(torch, call)),
             plain_ms=cuda_ms(torch, lambda: topk_plain(x, TOPK_K), iters=10),
             library_ms=cuda_ms(
                 torch, lambda: torch.topk(x, TOPK_K, dim=-1).values, iters=50),
             bound_ms=bound[bound_by], bound_by=bound_by)
 
+    def us(ms):
+        return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
     note("times: topk_rows")
-    topk_recs = {name: topk_record(x) for name, x in topk_inputs}
+    topk_recs = {name: topk_record(x) for name, x in topk_inputs.items()}
     topk_recs["random"] = topk_record(torch.randn(
-        cost.shape, device=dev, generator=torch.Generator(dev).manual_seed(3)))
+        topk_inputs["-cost M=50"].shape, device=dev,
+        generator=torch.Generator(dev).manual_seed(3)))
     for name, r in topk_recs.items():
-        device_us = ("not measured" if r["device_ms"] is None
-                     else f"{r['device_ms'] * 1e3:.2f} us")
-        log(f"[time] topk_rows on {name} {tuple(cost.shape)} k={TOPK_K}: "
-            f"{r['ms'] * 1e3:.2f} us a call ({device_us} of "
-            f"device time in the profiler), plain {r['plain_ms'] * 1e3:.2f} "
-            f"us, torch.topk {r['library_ms'] * 1e3:.2f} us, bound "
+        shape = tuple(topk_inputs.get(name, topk_inputs["-cost M=50"]).shape)
+        log(f"[time] topk_rows on {name} {shape} k={TOPK_K}: device time in "
+            f"the profiler {us(r['cold_ms'])} with the L2 cold "
+            f"({L2_FLUSH_BYTES >> 20} MB written before each launch), "
+            f"{us(r['device_ms'])} back to back; {r['ms'] * 1e3:.2f} us a call "
+            f"by CUDA events, {r['host_ms'] * 1e3:.2f} us of the host a call; "
+            f"plain {r['plain_ms'] * 1e3:.2f} us, torch.topk "
+            f"{r['library_ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) on {card}")
+    # and inside the train steps, where its input comes warm from the L2
+    for what, fn in (
+            ("the un-augmented step (M=50)",
+             lambda: step(state, images, labels)),
+            ("the augmented step (M=100)",
+             lambda: aug_step(state, aug_images, labels, generator=gen))):
+        in_step = kernel_device_ms(torch, fn, ("topk_rows_kernel",), iters=2,
+                                   traces=2)["topk_rows_kernel"]
+        log(f"[time] topk_rows inside {what}'s profiler window: "
+            f"{us(None if in_step is None else in_step / 2)} of device time "
+            f"a launch (2 a step) on {card}")
 
     def mean(key):
-        return sum(topk_recs[name][key] for name, _ in topk_inputs) / 2
+        return (topk_recs["pair_iou M=50"][key]
+                + topk_recs["-cost M=50"][key]) / 2
 
     # the mosaic warp on the augmented step's own two calls, recorded as the
     # augmentation makes them
@@ -2129,8 +2234,8 @@ def main() -> int:
         "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
         "launches": topk_launches, "max_abs_err": topk_err,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": topk_recs["-cost"]["bound_ms"],
-        "bound_by": topk_recs["-cost"]["bound_by"],
+        "bound_ms": topk_recs["-cost M=50"]["bound_ms"],
+        "bound_by": topk_recs["-cost M=50"]["bound_by"],
         "library_ms": mean("library_ms")}, {
         "name": "mosaic_warp", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/mosaic_warp.cu",

@@ -6,11 +6,14 @@ package (the directory is git-ignored). The hash covers the source and the
 flags, so an edited source builds anew. Nothing is built at import time.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
+         -Xptxas -v -shared -Xcompiler -fPIC -o build/<name>-<hash>.so
+         csrc/<name>.cu
 
 `-fmad=false` keeps nvcc from contracting a product and a sum into one FMA:
 the kernels hold bit-exactness with the plain versions, which round each
-operation. No `--use_fast_math`.
+operation. No `--use_fast_math`. `-Xptxas -v` makes ptxas report each
+kernel's registers, shared memory and spills; `LOGS` keeps that output
+for every source this process built.
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
-              "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+              "-shared", "-Xcompiler", "-fPIC"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+LOGS: dict[str, str] = {}  # nvcc's output by source name, as built here
 
 
 def nvcc_path() -> str:
@@ -71,6 +75,7 @@ def build(names) -> None:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
         os.replace(tmp, library_path(name))
+        LOGS[name] = log
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,7 +4,7 @@ Replaces the TPU kernel `pl_yolo_tpu/ops/pallas/topk_pallas.py::_topk_kernel`
 (entry `topk_pallas`). `topk_rows(x, k)` takes x [..., A] of any float type
 and returns the k largest values along the last dim, descending, duplicates
 included, as [..., k] in x's dtype (selected in fp32, as the TPU kernel
-does); `1 <= k <= 16 < A <= MAX_A`. The result equals
+does); `1 <= k <= 16 < A < 2^31`. The result equals
 `torch.topk(x, k, dim=-1).values` bit for bit for finite and `-inf` entries;
 NaN inputs are outside the contract, as in the TPU kernel (the kernel skips
 NaN entries and ends a row that runs short with NaN).
@@ -19,13 +19,13 @@ design and bound. `topk_rows.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
 
-MAX_K = 16     # the kernel's limits (csrc/topk_rows.cu kMaxK, kMaxA): the
-MAX_A = 57344  # row lives in a block's shared memory
+MAX_K = 16  # the kernel's largest k (csrc/topk_rows.cu kMaxK)
 
 
 def topk_plain(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -52,13 +52,14 @@ def topk_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return out.reshape(*lead, k).to(x.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("topk_rows")
-    fn = lib.topk_rows
+@functools.cache
+def _kernel():
+    """The C entry of `csrc/topk_rows.cu`, built and typed on first use."""
+    fn = build.load("topk_rows").topk_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def topk_rows(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -74,19 +75,17 @@ def topk_rows(x: torch.Tensor, k: int) -> torch.Tensor:
         return topk_plain(x, k)
     if x.device.type != "cuda":
         raise ValueError(f"topk_rows runs on cuda or cpu, not {x.device}")
-    if a > MAX_A:
-        raise ValueError(f"topk_rows takes A <= {MAX_A} on the card, got {a}")
     xr = x.detach().reshape(-1, a).to(torch.float32).contiguous()
     rows = xr.shape[0]
-    if rows >= 2 ** 31:
-        raise ValueError(f"topk_rows takes fewer than 2^31 rows, got {rows}")
+    if rows >= 2 ** 31 or a >= 2 ** 31:
+        raise ValueError(f"topk_rows takes fewer than 2^31 rows and entries "
+                         f"a row, got {rows} x {a}")
     out = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     if rows > 0:
-        lib = _library()
+        kernel = _kernel()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.topk_rows(xr.data_ptr(), out.data_ptr(), rows, a, k,
-                                stream)
+            err = kernel(xr.data_ptr(), out.data_ptr(), rows, a, k, stream)
         if err != 0:
             raise RuntimeError(
                 f"topk_rows kernel launch failed: cudaError {err}")

@@ -147,7 +147,7 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_never_imports_jax():
     files = sorted((ROOT / "pl_yolo_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_topk_ab.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):

@@ -38,10 +38,25 @@ def _rows(kind, rng, shape=(3, 7, 500)):
         x[0, 0, :4] = [3.0, -1.0, 3.0, 7.5]
         x[1, 3, 100:112] = rng.normal(size=12)
         return x
+    # rows that a pass split over lanes can get wrong: every value rising
+    # into the running top k, none after the first, k copies everywhere
+    if kind == "ascending":
+        x = np.arange(shape[-1], dtype=np.float32) * 0.5
+        return np.broadcast_to(x + rng.normal(size=shape[:-1] + (1,)),
+                               shape).astype(np.float32)
+    if kind == "descending":
+        return _rows("ascending", rng, shape)[..., ::-1].copy()
+    if kind == "all_equal":
+        return np.broadcast_to(rng.normal(size=shape[:-1] + (1,)),
+                               shape).astype(np.float32)
+    if kind == "odd_a":         # row starts off 16-byte alignment
+        return rng.normal(size=shape[:-1] + (shape[-1] - 1,)).astype(
+            np.float32)
     raise ValueError(kind)
 
 
-KINDS = ["random", "mostly_zero", "ties_near_minus_1e9", "minus_inf"]
+KINDS = ["random", "mostly_zero", "ties_near_minus_1e9", "minus_inf",
+         "ascending", "descending", "all_equal", "odd_a"]
 
 
 @pytest.mark.parametrize("k", [1, 10, MAX_K])
