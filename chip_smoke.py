@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's YOLOX-s serving and training paths on one CUDA card.
+"""Drive the PyTorch port's YOLOX-s serving and training paths, and its anchor
+families (YOLOv7, YOLOv5-s, YOLOv3), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -75,9 +76,29 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      mAP; the epoch images/s through the loader with 0 and 4 workers, the
      epoch's images/s without the loader's wait, the loader alone, the
      bare step alone and beside a decoding loader, and the validation's
-     time a batch (forward + decode, postprocess, COCO evaluation).
+     time a batch (forward + decode, postprocess, COCO evaluation);
+ 11. the anchor families: `yolov7.yaml` at full width and depth (E-ELAN,
+     the YOLOv7 neck, the implicit head, the OTA loss), 80 classes, bf16,
+     B=16, 640^2, its kernel launches counted from 0: 4 requests through
+     `postprocess` (one NMS launch each; card == CPU postprocess), 4 steps
+     with 50 label slots and 4+1 steps through
+     `make_augment_fn(AugmentConfig(max_labels=100), out_s2d=False)` (the
+     NHWC route: E-ELAN has no Focus stem), 2 top-k launches a step and 2
+     warps an augmented one, finite losses with labels assigned; the top-k
+     kernel bit-equal to its plain version and `torch.topk` on both steps'
+     own OTA rows ([16,50,1350] and [16,100,2700]); the fp32 head maps at
+     B=1, the loss and its gradients at B=2 and the NHWC augmented batch
+     against the CPU's; the times (infer+NMS, both train steps with idle
+     share and peak memory, the OTA assignment alone, the top-k on its rows
+     cold and back to back beside its bound, plain version and
+     `torch.topk`); `python -m pl_yolo_tpu_torch -c yolov7.yaml` on 32
+     JPEGs for one epoch and a validation that prints mAP; `yolov5_s.yaml`:
+     2 augmented steps on the s2d route and a request; the YOLOv3 loss and
+     gradients on the card against the CPU.
 
-The line before the last is the `kernels` JSON record, and the last line is
+The script's total wall time is printed before the card's line. The line
+before the last is the `kernels` JSON record (the top-k kernel twice: on
+the YOLOX path's rows and on the YOLOv7 OTA's), and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
 """
@@ -121,6 +142,8 @@ PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 NMS_OPS_PER_PAIR = 14
 # card fp32 (cuDNN, TF32 off) vs CPU fp32 head maps: the sums run in another
 # order, and cuDNN may pick Winograd/FFT algorithms, through ~70 convs
+# (YOLOX-s) or ~110 (YOLOv7, whose implicit head then runs in fp32 in both
+# precisions)
 MAPS_TOL = 1e-3  # on max |card - cpu| / max(1, max |cpu|)
 # the loss on the card vs the CPU from the same fp32 head maps: the same
 # formulas, sums over 8400 anchors in another order, exp/log of two libraries
@@ -155,6 +178,10 @@ UPDATE_TOL = 1e-5  # on max |change - by hand| / max |change|
 TRAINER_IMAGES, TRAINER_EPOCHS, JPEG_HW = 64, 3, (480, 640)
 TRAINER_STEPS = TRAINER_EPOCHS * TRAINER_IMAGES // BATCH
 STEP_SPLIT_STEPS = 4  # a timing of the bare step beside a busy loader
+# phase 11: the anchor families, YOLOv7 at full width and depth
+V7_CONFIG = ROOT / "pl_yolo_tpu_torch" / "configs" / "model" / "yolov7.yaml"
+V5_CONFIG = ROOT / "pl_yolo_tpu_torch" / "configs" / "model" / "yolov5_s.yaml"
+ANCHOR_CLI_IMAGES = 32  # 2 steps at B=16, then a validation
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -1184,6 +1211,429 @@ def phase_trainer(torch, card: str, device) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[trainer] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def ota_recorder(torch):
+    """A context that records the inputs of the YOLOv7 loss's top-k calls
+    (the OTA's IoU and -cost rows) and of its assignment, as the loss hands
+    them over, while the calls themselves run unchanged."""
+    import contextlib
+    from pl_yolo_tpu_torch.models.losses import yolov7
+
+    @contextlib.contextmanager
+    def record():
+        rows, assigns = [], []
+        topk, assign = yolov7.topk_lastdim, yolov7.ota_assign
+
+        def topk_recording(x, k, *args, **kw):
+            rows.append((x.detach().clone(), k))
+            return topk(x, k, *args, **kw)
+
+        def assign_recording(*args):
+            assigns.append(args)
+            return assign(*args)
+        yolov7.topk_lastdim, yolov7.ota_assign = topk_recording, assign_recording
+        try:
+            yield rows, assigns
+        finally:
+            yolov7.topk_lastdim, yolov7.ota_assign = topk, assign
+    return record
+
+
+def phase_anchor(torch, card: str, dev) -> dict:
+    """Phase 11 (see the module docstring), on the card `dev`. Returns the
+    top-k kernel's record on the YOLOv7 path for the `kernels` line."""
+    import yaml
+    from pl_yolo_tpu_torch.data import augment
+    from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.models.losses import yolov3, yolov7
+    from pl_yolo_tpu_torch.ops.cuda.topk import topk_plain, topk_rows
+    from pl_yolo_tpu_torch.ops.nms import postprocess
+    from pl_yolo_tpu_torch.ops.topk import topk_lastdim
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.utils.config import (load_config,
+                                                validate_model_config)
+    t_phase = time.perf_counter()
+    record = ota_recorder(torch)
+
+    def config(path, dtype="keep"):
+        cfg = validate_model_config(load_config(path), str(path))
+        if dtype != "keep":
+            cfg["dtype"] = dtype
+        return cfg
+
+    def launched(before, want, what):
+        """Fail unless each kernel launched `want[name]` times since the
+        counts `before`."""
+        got = {n: c - before[n] for n, c in launch_counts().items()}
+        want = {n: want.get(n, 0) for n in got}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, not {want}")
+
+    def finite(what, losses):
+        for k, v in losses.items():
+            if v.requires_grad or not bool(torch.isfinite(v)):
+                raise AssertionError(f"{what}: bad {k} {v}")
+
+    cfg = config(V7_CONFIG)
+    model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
+    fp32 = build_model(config(V7_CONFIG, None), NUM_CLASSES, device=dev,
+                       seed=0)
+    loss_kw = model.loss.train_loss.keywords
+    strides, anchors = loss_kw["strides"], loss_kw["anchors"]
+    n_anchors = 3 * sum((SIZE // s) ** 2 for s in strides)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    requests = [torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+                * 255.0 for _ in range(REQUESTS)]
+    labels = train_labels(torch, dev, BATCH)
+    aug_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS)
+    aug_images = bench_images(torch, dev, BATCH, seed=2)
+
+    def infer(m, x):
+        preds = m.loss.eval_decode(m.module(x))
+        return preds, postprocess(preds, conf_threshold=CONF,
+                                  iou_threshold=IOU, max_det=MAX_DET,
+                                  pre_nms_topk=PRE_NMS_TOPK, device=dev)
+
+    # the YOLOv7 path: serving, then training without and with augmentation,
+    # its kernel launches counted from 0
+    note("yolov7: serving")
+    reset_launch_counts()
+    served = []
+    with torch.inference_mode():
+        for x in requests:
+            before = launch_counts()
+            served.append(infer(model, x))
+            launched(before, {"nms_suppress": 1}, "yolov7 request")
+    note("yolov7: training")
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                   total_steps=TOTAL_STEPS)
+    state = TrainState.create(model.module, optimizer)
+    step = make_train_step(model.loss.train_loss)
+    aug_fn = augment.make_augment_fn(aug_cfg, out_s2d=False)
+    aug_step = make_train_step(model.loss.train_loss, augment_fn=aug_fn)
+    history, aug_history = [], []
+    for n in range(TRAIN_STEPS):
+        before = launch_counts()
+        with record() as (rows, assigns):
+            history.append(step(state, requests[0], labels))
+        launched(before, {"topk_rows": 2}, f"yolov7 step {n}")
+        if n == 0:
+            rows50, assign50 = rows, assigns[0]
+    for n in range(AUG_STEPS + 1):
+        before = launch_counts()
+        with record() as (rows, assigns):
+            aug_history.append(aug_step(state, aug_images, labels,
+                                        generator=gen,
+                                        aug_enable=n < AUG_STEPS))
+        launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                 f"yolov7 augmented step {n}")
+        if n == 0:
+            rows100, assign100 = rows, assigns[0]
+    torch.cuda.synchronize()
+    path_launches = launch_counts()
+    if not all(path_launches[n] > 0 for n in
+               ("nms_suppress", "topk_rows", "mosaic_warp")):
+        raise AssertionError(f"the yolov7 path skipped a kernel: "
+                             f"{path_launches}")
+
+    # what it served and how it trained
+    for preds, det in served:
+        if tuple(preds.shape) != (BATCH, n_anchors, 5 + NUM_CLASSES) \
+                or tuple(det.boxes.shape) != (BATCH, MAX_DET, 4):
+            raise AssertionError(f"yolov7 serving shapes {tuple(preds.shape)}"
+                                 f", {tuple(det.boxes.shape)}")
+        for name, t in (("preds", preds), ("boxes", det.boxes),
+                        ("scores", det.scores)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"yolov7 serving: non-finite {name}")
+        ref = postprocess(preds.cpu(), conf_threshold=CONF, iou_threshold=IOU,
+                          max_det=MAX_DET, pre_nms_topk=PRE_NMS_TOPK,
+                          device="cpu")
+        for field in ("valid", "classes", "scores", "boxes"):
+            if not torch.equal(getattr(det, field).cpu(), getattr(ref, field)):
+                raise AssertionError(f"yolov7: card postprocess != CPU "
+                                     f"postprocess ({field})")
+    for what, hist in (("step", history), ("augmented step", aug_history)):
+        for n, losses in enumerate(hist):
+            finite(f"yolov7 {what} {n}", losses)
+            if not float(losses["proportion"]) > 0:
+                raise AssertionError(f"yolov7 {what} {n}: no anchor assigned")
+    if [tuple(x.shape) for x, _ in rows50] != [(BATCH, MAX_LABELS, MAX_LABELS * 27)] * 2 \
+            or [tuple(x.shape) for x, _ in rows100] != [(BATCH, AUG_MAX_LABELS, AUG_MAX_LABELS * 27)] * 2:
+        raise AssertionError("the OTA's top-k rows: "
+                             f"{[tuple(x.shape) for x, _ in rows50 + rows100]}")
+    log(f"[yolov7] {cfg['backbone']['name']} {cfg['backbone']['channels']} "
+        f"depths {cfg['backbone']['depths']}, {cfg['neck']['name']}, "
+        f"{cfg['head']['name']}, bf16: {REQUESTS} requests of {BATCH}x{SIZE}x"
+        f"{SIZE} through eval_decode and postprocess (shapes, finiteness, "
+        f"card == CPU postprocess; kept "
+        f"{[int(det.valid.sum()) for _, det in served]}); {TRAIN_STEPS} "
+        f"steps (M={MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in history)
+        + f"; {AUG_STEPS}+1 augmented steps (NHWC, M={AUG_MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in aug_history)
+        + f"; proportion {float(history[-1]['proportion']):.2f} / "
+        f"{float(aug_history[-2]['proportion']):.2f}; launches on the path "
+        f"{path_launches}")
+
+    # the top-k kernel on the steps' own rows, bit for bit
+    topk_err = 0.0
+    for what, rows in ((f"M={MAX_LABELS} step", rows50),
+                       (f"M={AUG_MAX_LABELS} augmented step", rows100)):
+        for (x, k), name in zip(rows, ("IoU", "-cost")):
+            before = launch_counts()
+            got = topk_lastdim(x, k)
+            torch.cuda.synchronize()
+            launched(before, {"topk_rows": 1}, f"top-k on the {what}'s {name}")
+            plain = topk_plain(x, k)
+            library = torch.topk(x, k, dim=-1).values
+            for other, against in ((plain, "plain"), (library, "torch.topk")):
+                if not torch.equal(got, other):
+                    raise AssertionError(
+                        f"topk_rows != {against} on the yolov7 {what}'s "
+                        f"{name} {tuple(x.shape)}: "
+                        f"{int((got != other).any(-1).sum())} rows differ")
+            fin = torch.isfinite(plain)
+            topk_err = max(topk_err, float((got - plain)[fin].abs().max())
+                           if bool(fin.any()) else 0.0)
+            log(f"[kernel] topk_rows == plain == torch.topk on the yolov7 "
+                f"{what}'s OTA {name} rows {tuple(x.shape)}, k={k}")
+
+    # the fp32 head maps at B=1, card against CPU (TF32 off, as phase 4)
+    note("yolov7: card against CPU")
+    x1 = requests[0][:1]
+    with torch.inference_mode():
+        maps_card = [m.cpu() for m in fp32.module.eval()(x1)]
+        cpu_model = build_model(config(V7_CONFIG, None), NUM_CLASSES,
+                                device="cpu", seed=0)
+        maps_cpu = cpu_model.module(x1.cpu())
+    scale = max(1.0, max(float(m.abs().max()) for m in maps_cpu))
+    err = max(float((a - b).abs().max()) for a, b in zip(maps_card, maps_cpu))
+    log(f"[yolov7] fp32 head maps card vs CPU at B=1: max abs err {err:.3e} "
+        f"(max |map| {scale:.3f}, tolerance {MAPS_TOL} x scale)")
+    if not err <= MAPS_TOL * scale:
+        raise AssertionError(f"yolov7 fp32 head maps differ: {err}")
+
+    # the loss and its gradients, card against CPU, on fp32 maps at B=2
+    with torch.no_grad():
+        maps = [m.float() for m in fp32.module.train()(requests[0][:2])]
+    fp32.module.eval()
+    sides = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        outs = [m.detach().to(device).requires_grad_() for m in maps]
+        lab = labels[:2].to(device)
+        losses = fp32.loss.train_loss(outs, lab)
+        losses["loss"].backward()
+        with torch.no_grad():
+            d = yolov7.flatten_v7_outputs([o.detach() for o in outs],
+                                          strides, anchors, NUM_CLASSES)
+            a = yolov7.ota_assign(lab[..., 1:5], lab[..., 0].long(),
+                                  lab.sum(2) > 0, d,
+                                  tuple(o.shape[1:3] for o in outs), strides,
+                                  anchors, NUM_CLASSES)
+        sides[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                       [o.grad.cpu() for o in outs], a)
+    (l_card, g_card, a_card), (l_cpu, g_cpu, a_cpu) = sides["card"], sides["cpu"]
+    same = all(torch.equal(getattr(a_card, f).cpu(), getattr(a_cpu, f))
+               for f in ("flat_idx", "matched_gt", "fg"))
+    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+                   for k in l_cpu)
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g_card, g_cpu))
+    log(f"[yolov7] loss card vs CPU on fp32 maps at B=2: assignment equal "
+        f"{same} ({int(a_cpu.fg.sum())} positives), loss {l_card['loss']:.6f} "
+        f"vs {l_cpu['loss']:.6f}, max relative error of a loss entry "
+        f"{loss_err:.3e}, of a map's gradient {grad_err:.3e} (tolerance "
+        f"{LOSS_TOL})")
+    if not (same and loss_err <= LOSS_TOL and grad_err <= LOSS_TOL):
+        raise AssertionError(f"yolov7 loss on the card != CPU: {same}, "
+                             f"{loss_err}, {grad_err}")
+
+    # the NHWC augmentation, card against CPU on the same draws
+    draws = augment.sample_draws(gen, BATCH, (SIZE, SIZE), aug_cfg)
+    card_img, card_lab = augment.device_augment(draws, aug_images, labels,
+                                                aug_cfg)
+    cpu_img, cpu_lab = augment.device_augment(
+        draws.to("cpu"), aug_images.cpu(), labels.cpu(), aug_cfg)
+    if (tuple(card_img.shape) != (BATCH, SIZE, SIZE, 3)
+            or card_img.dtype != torch.float32):
+        raise AssertionError(f"NHWC augmented batch: {card_img.dtype} "
+                             f"{tuple(card_img.shape)}")
+    lab_err = float((card_lab.cpu() - cpu_lab).abs().max())
+    same_rows = torch.equal(card_lab.cpu().abs().sum(-1) > 0,
+                            cpu_lab.abs().sum(-1) > 0)
+    pix = (card_img.cpu() - cpu_img).abs()
+    log(f"[augment] NHWC (out_s2d=False) card vs CPU on the same draws, "
+        f"B={BATCH} {SIZE}^2 uint8 in, fp32 out: labels max abs err "
+        f"{lab_err:.3e} px (tolerance {AUG_LABEL_TOL}), valid rows equal "
+        f"{same_rows}; pixels max {float(pix.max()):.3f}, mean "
+        f"{float(pix.mean()):.3e} grey levels (tolerance {AUG_PIXEL_TOL})")
+    if not (lab_err <= AUG_LABEL_TOL and same_rows
+            and float(pix.max()) <= AUG_PIXEL_TOL[0]
+            and float(pix.mean()) <= AUG_PIXEL_TOL[1]):
+        raise AssertionError("the card's NHWC augmentation != the CPU's")
+    del cpu_img, pix, card_img, maps_cpu, cpu_model
+
+    # times, on a state whose learning rate stays near 0 (see phase 9)
+    note("yolov7: times")
+    rec = {}
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        model.module.eval()
+        infer_ms = cuda_ms(torch, lambda: infer(model, requests[0]), 10)
+        infer_busy, _ = device_profile(torch, lambda: infer(
+            model, requests[0]), 3)
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                   total_steps=10 ** 9)
+    state = TrainState.create(model.module, optimizer)
+    timed = {}
+    for what, fn in (("un-augmented", lambda: step(state, requests[0],
+                                                   labels)),
+                     ("augmented", lambda: aug_step(
+                         state, aug_images, labels, generator=gen))):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, fn, iters=6, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, top = device_profile(torch, fn, 2)
+        timed[what] = (ms, busy, peak, top)
+    ota_ms = {what: cuda_ms(torch, lambda: yolov7.ota_assign(*args), 10)
+              for what, args in (("M=50", assign50), ("M=100", assign100))}
+    log(f"[time] yolov7 infer+NMS bf16 B={BATCH}: {infer_ms:.3f} "
+        f"ms/batch, {BATCH * 1000.0 / infer_ms:.1f} images/s, device "
+        f"busy {infer_busy:.3f} ms (idle share "
+        f"{1.0 - infer_busy / infer_ms:.3f}) on {card}")
+    for what, (ms, busy, peak, top) in timed.items():
+        log(f"[time] yolov7 {what} train step bf16 B={BATCH}: {ms:.3f} "
+            f"ms/step, {BATCH * 1000.0 / ms:.1f} images/s, device busy "
+            f"{busy:.3f} ms (idle share {1.0 - busy / ms:.3f}), peak "
+            f"device memory {peak:.2f} GiB on {card}; top kernels, ms "
+            f"a step: " + "; ".join(f"{t:.4f} {name[:48]}"
+                                    for name, t in top[:6]))
+    log(f"[time] yolov7 OTA assignment alone (candidates, cost, 2 top-k, "
+        f"claims) on the steps' own inputs: "
+        + ", ".join(f"{w} {ms:.3f} ms" for w, ms in ota_ms.items())
+        + f" on {card}")
+    for what, rows in (("M=50", rows50), ("M=100", rows100)):
+        for (x, k), name in zip(rows, ("IoU", "-cost")):
+            n_rows, a = x.shape[0] * x.shape[1], x.shape[2]
+            bound = {"operations": n_rows * a / PEAK_FP32_FLOPS * 1e3,
+                     "bytes": (n_rows * a + n_rows * k) * 4
+                     / PEAK_BYTES * 1e3}
+            bound_by = max(bound, key=bound.get)
+
+            def call(x=x, k=k):
+                return topk_rows(x, k)
+
+            def device(fn):
+                return kernel_device_ms(torch, fn, ("topk_rows_kernel",))[
+                    "topk_rows_kernel"]
+            r = dict(ms=cuda_ms(torch, call, iters=50),
+                     device_ms=device(call),
+                     cold_ms=device(l2_cold(torch, call)),
+                     plain_ms=cuda_ms(torch, lambda: topk_plain(x, k),
+                                      iters=10),
+                     library_ms=cuda_ms(torch, lambda: torch.topk(
+                         x, k, dim=-1).values, iters=50),
+                     bound_ms=bound[bound_by], bound_by=bound_by)
+            rec[what, name] = r
+            fmt = lambda ms: ("not measured" if ms is None
+                              else f"{ms * 1e3:.2f} us")
+            log(f"[time] topk_rows on the yolov7 {what} OTA {name} rows "
+                f"{tuple(x.shape)} k={k}: device time "
+                f"{fmt(r['cold_ms'])} with the L2 cold, "
+                f"{fmt(r['device_ms'])} back to back; "
+                f"{r['ms'] * 1e3:.2f} us a call by CUDA events; plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, torch.topk "
+                f"{r['library_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound_ms'] * 1e3:.3f} us ({bound_by}) on {card}")
+
+    # the CLI on a few JPEGs: one short epoch and a validation with mAP
+    note("yolov7: CLI")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_yolov7_"))
+    try:
+        write_coco(tmp / "coco", ANCHOR_CLI_IMAGES, NUM_CLASSES, seed=3)
+        _, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+        args = ["-c", str(V7_CONFIG), "-d", str(tmp / "data.yaml"),
+                "--max_epochs", "1", "--logger", "csv", "--output_dir",
+                str(tmp / "runs"), "-n", "yolov7_cli"]
+        rc, lines = run_cli(args, 300)
+        maps_line = [line for line in lines if line.startswith("mAP = ")]
+        epochs = epoch_lines(lines)
+        if rc != 0 or not maps_line or 0 not in epochs \
+                or not math.isfinite(epochs[0][2]):
+            raise AssertionError(f"yolov7 CLI: exit {rc}:\n"
+                                 + "\n".join(lines[-30:]))
+        log(f"[yolov7] CLI `python -m pl_yolo_tpu_torch -c "
+            f"{V7_CONFIG.relative_to(ROOT)}"
+            f"` on {ANCHOR_CLI_IMAGES} JPEGs: exit 0, epoch 0 "
+            f"{epochs[0][1]:.1f} images/s, loss {epochs[0][2]:.3f}; "
+            f"'{maps_line[-1]}'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # YOLOv5-s: the Focus stem's s2d route, and one request
+    note("yolov5-s")
+    v5_cfg = config(V5_CONFIG)
+    v5 = build_model(v5_cfg, NUM_CLASSES, device=dev, seed=0)
+    optimizer, _ = build_optimizer(v5.module, v5_cfg["optimizer"],
+                                   total_steps=TOTAL_STEPS)
+    state = TrainState.create(v5.module, optimizer)
+
+    def s2d_apply(module, x):
+        with stem_input_s2d():
+            return module(x)
+    v5_step = make_train_step(v5.loss.train_loss, apply_fn=s2d_apply,
+                              augment_fn=augment.make_augment_fn(
+                                  aug_cfg, out_s2d=True))
+    v5_losses = []
+    for n in range(2):
+        before = launch_counts()
+        v5_losses.append(v5_step(state, aug_images, labels, generator=gen))
+        launched(before, {"mosaic_warp": 2}, f"yolov5-s augmented step {n}")
+        finite(f"yolov5-s augmented step {n}", v5_losses[-1])
+    before = launch_counts()
+    v5.module.eval()
+    with torch.inference_mode():
+        preds, det = infer(v5, requests[1])
+    launched(before, {"nms_suppress": 1}, "yolov5-s request")
+    if not (bool(torch.isfinite(preds).all())
+            and bool(torch.isfinite(det.boxes).all())):
+        raise AssertionError("yolov5-s request: non-finite outputs")
+    log(f"[yolov5] yolov5_s.yaml bf16: 2 augmented steps of {BATCH}x{SIZE}x"
+        f"{SIZE} through the s2d stem, loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in v5_losses)
+        + f", proportion {float(v5_losses[-1]['proportion']):.2f}; 1 request:"
+        f" {int(det.valid.sum())} detections kept")
+    del v5, state
+
+    # YOLOv3: the loss and its gradients on the card against the CPU
+    g3 = torch.Generator(device="cpu").manual_seed(9)
+    v3_maps = [torch.randn((2, SIZE // s, SIZE // s, 3 * (5 + NUM_CLASSES)),
+                           generator=g3) for s in (32, 16, 8)]
+    sides = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        outs = [m.to(device).requires_grad_() for m in v3_maps]
+        loss = yolov3.yolov3_loss(outs, labels[:2].to(device), NUM_CLASSES,
+                                  img_size=(SIZE, SIZE))["loss"]
+        loss.backward()
+        sides[side] = (float(loss.detach()), [o.grad.cpu() for o in outs])
+    (l3_card, g3_card), (l3_cpu, g3_cpu) = sides["card"], sides["cpu"]
+    l3_err = abs(l3_card - l3_cpu) / abs(l3_cpu)
+    g3_err = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(g3_card, g3_cpu))
+    log(f"[yolov3] loss card vs CPU on random maps at B=2, {SIZE}^2: "
+        f"{l3_card:.6f} vs {l3_cpu:.6f}, relative error {l3_err:.3e}, of a "
+        f"map's gradient {g3_err:.3e} (tolerance {LOSS_TOL})")
+    if not (l3_err <= LOSS_TOL and g3_err <= LOSS_TOL):
+        raise AssertionError(f"yolov3 loss on the card != CPU: {l3_err}, "
+                             f"{g3_err}")
+    log(f"[anchor] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": path_launches["topk_rows"], "max_abs_err": topk_err,
+            "records": rec}
 
 
 def main() -> int:
@@ -2220,6 +2670,15 @@ def main() -> int:
     note("trainer")
     phase_trainer(torch, card, dev)
 
+    # 11. the anchor families
+    note("anchor families")
+    v7 = phase_anchor(torch, card, dev)
+
+    def v7_mean(key):
+        recs = [v7["records"]["M=50", name] for name in ("IoU", "-cost")]
+        return sum(r[key] for r in recs) / len(recs)
+
+    log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "nms_suppress", "route": "cuda",
@@ -2252,7 +2711,15 @@ def main() -> int:
         "ms": simota_mean("ms"), "plain_ms": simota_mean("plain_ms"),
         "bound_ms": simota_mean("bound_ms"),
         "bound_by": simota_recs["M=100 augmented step"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "topk_rows (yolov7 OTA rows)", "route": "cuda",
+        "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",
+        "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
+        "launches": v7["launches"], "max_abs_err": v7["max_abs_err"],
+        "ms": v7_mean("ms"), "plain_ms": v7_mean("plain_ms"),
+        "bound_ms": v7["records"]["M=50", "-cost"]["bound_ms"],
+        "bound_by": v7["records"]["M=50", "-cost"]["bound_by"],
+        "library_ms": v7_mean("library_ms")}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

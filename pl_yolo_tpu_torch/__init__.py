@@ -38,6 +38,15 @@ kernels above on decoded JPEGs. The numpy / PIL modules of the JAX package
 that import no JAX are kept here as copies, which a test holds to their
 originals.
 
+Slice 7 redesigned the row top-k kernel as one streaming pass.
+
+Slice 8 covers the anchor families: the YOLOv7 model (E-ELAN, the YOLOv7
+neck with optional RepConv, the implicit head) and its OTA loss, whose two
+top-k calls run the row top-k kernel; YOLOv5-s with its loss; the YOLOv3
+loss and decode; CIoU / DIoU; RepConv fusion (`utils.fuse`); and the
+copied anchor-family YAMLs, which the trainer and CLI train on the NHWC
+augmentation (E-ELAN has no Focus stem).
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

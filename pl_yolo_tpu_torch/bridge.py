@@ -11,6 +11,12 @@ to a torch key by a rename, plus a transpose for conv kernels:
     params/<path>/bn/scale, bn/bias                 <-> <path>.bn.weight, bn.bias
     batch_stats/<path>/bn/mean, bn/var              <-> <path>.bn.running_mean,
                                                         bn.running_var
+    params/<path>/ia{k}, im{k} [1,1,1,C]            <-> <path>.ia{k}, im{k}
+                                                        [1,C,1,1]
+
+A BatchNorm is a module named `bn`, or one of RepConv's `rbr_dense_bn`,
+`rbr_1x1_bn` and `rbr_identity`; `ia{k}` and `im{k}` are the implicit
+head's priors.
 
 `num_batches_tracked` (torch only) is written as 0 and dropped on the way
 back. Input is the numpy tree of `jax.device_get(model.init(...))` or the
@@ -25,6 +31,7 @@ to the optimizer's `momentum_buffer`s (`load_momentum`, `momentum_to_trace`).
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -32,6 +39,8 @@ import torch
 from torch import nn
 
 _NPZ_META = "__meta__"
+_BN_NAMES = frozenset({"bn", "rbr_dense_bn", "rbr_1x1_bn", "rbr_identity"})
+_IMPLICIT = re.compile(r"i[am]\d+")  # the implicit head's priors
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -47,8 +56,10 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 
 def _to_torch_key(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
     collection, *mod, leaf = path
-    in_bn = bool(mod) and mod[-1] == "bn"
+    in_bn = bool(mod) and mod[-1] in _BN_NAMES
     if collection == "params":
+        if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
+            return ".".join(mod + [leaf]), value.transpose(0, 3, 1, 2)
         if leaf == "kernel" and value.ndim == 4 and not in_bn:
             return ".".join(mod + ["weight"]), value.transpose(3, 2, 0, 1)
         if leaf == "bias":
@@ -103,10 +114,12 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
         value = t.detach().cpu().numpy()
-        in_bn = bool(mod) and mod[-1] == "bn"
+        in_bn = bool(mod) and mod[-1] in _BN_NAMES
         if leaf == "num_batches_tracked" and in_bn:
             continue
-        if leaf == "weight" and not in_bn and value.ndim == 4:
+        if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
+            collection, name, value = "params", leaf, value.transpose(0, 2, 3, 1)
+        elif leaf == "weight" and not in_bn and value.ndim == 4:
             collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
         elif leaf == "bias":
             collection, name = "params", "bias"

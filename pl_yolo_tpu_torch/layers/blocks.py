@@ -313,6 +313,33 @@ class SPPBottleneck(nn.Module):
         return self.conv2(torch.cat([x] + pools, dim=1))
 
 
+class SPPCSPC(nn.Module):
+    """CSP-style SPP of the YOLOv7 neck: cv1 -> cv3 (3x3) -> cv4, pools,
+    cv5 -> cv6 (3x3) on one branch, cv2 on the other, concat, cv7."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_sizes: Sequence[int] = (5, 9, 13),
+                 norm: str | None = "bn", act: str | None = "silu",
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        c2 = out_channels
+        kw = dict(norm=norm, act=act, dtype=dtype)
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.cv1 = ConvBlock(in_channels, c2, 1, **kw)
+        self.cv3 = ConvBlock(c2, c2, 3, **kw)
+        self.cv4 = ConvBlock(c2, c2, 1, **kw)
+        self.cv5 = ConvBlock(c2 * (len(self.kernel_sizes) + 1), c2, 1, **kw)
+        self.cv6 = ConvBlock(c2, c2, 3, **kw)
+        self.cv2 = ConvBlock(in_channels, c2, 1, **kw)
+        self.cv7 = ConvBlock(2 * c2, c2, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.cv4(self.cv3(self.cv1(x)))
+        pools = [max_pool_same(x1, ks) for ks in self.kernel_sizes]
+        y1 = self.cv6(self.cv5(torch.cat([x1] + pools, dim=1)))
+        return self.cv7(torch.cat([y1, self.cv2(x)], dim=1))
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample, NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")

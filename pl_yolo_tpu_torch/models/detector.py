@@ -1,5 +1,6 @@
 """One-stage detector assembly + registry, port of
-`pl_yolo_tpu/models/detector.py` for the YOLOX family.
+`pl_yolo_tpu/models/detector.py` for the YOLOX family and the anchor-based
+YOLOv7 / YOLOv5 / YOLOv3 families.
 
 `build_model(cfg, num_classes)` composes backbone -> neck -> head from the
 YAML config sections and returns a `DetectionModel`: the torch module, its
@@ -23,9 +24,19 @@ from torch import nn
 from .. import resolve_device
 from ..layers.blocks import compute_dtype
 from .backbones.cspdarknet import CSPDarkNet
+from .backbones.eelan import EELAN
 from .heads.decoupled_head import DecoupledHead
+from .heads.implicit_head import ImplicitHead
+from .heads.simple_head import SimpleHead
+from .losses.yolov3 import (DEFAULT_V3_ANCHORS, yolov3_eval_decode,
+                            yolov3_loss)
+from .losses.yolov5 import (DEFAULT_V5_ANCHORS, yolov5_eval_decode,
+                            yolov5_loss)
+from .losses.yolov7 import (DEFAULT_V7_ANCHORS, yolov7_eval_decode,
+                            yolov7_loss)
 from .losses.yolox import yolox_eval_decode, yolox_loss
 from .necks.csppafpn import CSPPAFPN
+from .necks.yolov7_neck import YOLOv7NECK
 
 
 class OneStageDetector(nn.Module):
@@ -87,9 +98,62 @@ def _decoupled_head(cfg: dict, num_classes: int,
     )
 
 
-BACKBONES: dict[str, Callable[..., nn.Module]] = {"cspdarknet": _cspdarknet}
-NECKS: dict[str, Callable[..., nn.Module]] = {"csppafpn": _csppafpn}
-HEADS: dict[str, Callable[..., nn.Module]] = {"decoupled_head": _decoupled_head}
+def _eelan(cfg: dict, dtype) -> nn.Module:
+    return EELAN(
+        depths=tuple(cfg["depths"]),
+        channels=tuple(cfg["channels"]),
+        outputs=tuple(cfg["outputs"]),
+        norm=cfg.get("norm", "bn"),
+        act=cfg.get("act", "silu"),
+        dtype=dtype,
+    )
+
+
+def _yolov7neck(cfg: dict, feat_channels: Sequence[int], dtype) -> nn.Module:
+    return YOLOv7NECK(
+        depths=tuple(cfg["depths"]),
+        in_channels=tuple(cfg["channels"]),
+        use_repconv=bool(cfg.get("use_repconv", False)),
+        norm=cfg.get("norm", "bn"),
+        act=cfg.get("act", "silu"),
+        feat_channels=tuple(feat_channels),
+        dtype=dtype,
+    )
+
+
+def _implicit_head(cfg: dict, num_classes: int,
+                   feat_channels: Sequence[int], dtype) -> nn.Module:
+    # fp32 whatever `dtype` (see ImplicitHead)
+    return ImplicitHead(
+        num_classes=num_classes,
+        n_anchors=int(cfg.get("num_anchor", 3)),
+        in_channels=tuple(feat_channels),
+    )
+
+
+def _simple_head(cfg: dict, num_classes: int,
+                 feat_channels: Sequence[int], dtype) -> nn.Module:
+    # fp32 whatever `dtype` (see SimpleHead)
+    return SimpleHead(
+        num_classes=num_classes,
+        n_anchors=int(cfg.get("num_anchor", 3)),
+        in_channels=tuple(feat_channels),
+    )
+
+
+BACKBONES: dict[str, Callable[..., nn.Module]] = {
+    "cspdarknet": _cspdarknet,
+    "eelan": _eelan,
+}
+NECKS: dict[str, Callable[..., nn.Module]] = {
+    "csppafpn": _csppafpn,
+    "yolov7neck": _yolov7neck,
+}
+HEADS: dict[str, Callable[..., nn.Module]] = {
+    "decoupled_head": _decoupled_head,
+    "implicit_head": _implicit_head,
+    "simple_head": _simple_head,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +182,68 @@ def _yolox_loss_spec(cfg: dict, num_classes: int) -> LossSpec:
     )
 
 
-LOSSES: dict[str, Callable[[dict, int], LossSpec]] = {"yolox": _yolox_loss_spec}
+def _anchors(cfg: dict, default) -> tuple:
+    return tuple(tuple(tuple(a) for a in lvl)
+                 for lvl in cfg.get("anchors", default))
+
+
+def _yolov7_loss_spec(cfg: dict, num_classes: int) -> LossSpec:
+    strides = tuple(cfg.get("stride", (8, 16, 32)))
+    anchors = _anchors(cfg, DEFAULT_V7_ANCHORS)
+    return LossSpec(
+        train_loss=functools.partial(
+            yolov7_loss, num_classes=num_classes, strides=strides,
+            anchors=anchors,
+            label_smoothing=float(cfg.get("label_smoothing", 0.0)),
+            # the ultralytics order (4.0 on stride 8), as the JAX package
+            balance=tuple(cfg.get("balance", (4.0, 1.0, 0.4))),
+            gain=dict(cfg.get("gain", {}))),
+        eval_decode=functools.partial(
+            yolov7_eval_decode, strides=strides, anchors=anchors,
+            num_classes=num_classes),
+        strides=strides,
+    )
+
+
+def _yolov5_loss_spec(cfg: dict, num_classes: int) -> LossSpec:
+    strides = tuple(cfg.get("stride", (8, 16, 32)))
+    anchors = _anchors(cfg, DEFAULT_V5_ANCHORS)
+    return LossSpec(
+        train_loss=functools.partial(
+            yolov5_loss, num_classes=num_classes, strides=strides,
+            anchors=anchors,
+            anchor_threshold=float(cfg.get("anchor_thre", 4.0)),
+            balance=tuple(cfg.get("balance", (4.0, 1.0, 0.4))),
+            gain=dict(cfg.get("gain", {}))),
+        eval_decode=functools.partial(
+            yolov5_eval_decode, strides=strides, anchors=anchors,
+            num_classes=num_classes),
+        strides=strides,
+    )
+
+
+def _yolov3_loss_spec(cfg: dict, num_classes: int) -> LossSpec:
+    strides = tuple(cfg.get("stride", (32, 16, 8)))
+    anchors = _anchors(cfg, DEFAULT_V3_ANCHORS)
+    img_size = tuple(cfg.get("img_size", (640, 640)))
+    return LossSpec(
+        train_loss=functools.partial(
+            yolov3_loss, num_classes=num_classes, anchors=anchors,
+            img_size=img_size,
+            ignore_threshold=float(cfg.get("ignore_threshold", 0.5))),
+        eval_decode=functools.partial(
+            yolov3_eval_decode, strides=strides, anchors=anchors,
+            num_classes=num_classes, img_size=img_size),
+        strides=strides,
+    )
+
+
+LOSSES: dict[str, Callable[[dict, int], LossSpec]] = {
+    "yolox": _yolox_loss_spec,
+    "yolov7": _yolov7_loss_spec,
+    "yolov5": _yolov5_loss_spec,
+    "yolov3": _yolov3_loss_spec,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,9 +267,10 @@ def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 def build_model(cfg: dict, num_classes: int, device=None,
                 seed: int = 0) -> DetectionModel:
     """Compose a detector from a model-config dict, on `device` (default
-    the CUDA card), in eval mode, with conv kernels drawn from a
-    `torch.Generator` seeded with `seed`. Top-level `dtype: bfloat16` runs
-    conv/BN in bf16 with fp32 params; decode stays fp32."""
+    the CUDA card), in eval mode, with conv kernels (and the implicit
+    head's priors) drawn from a `torch.Generator` seeded with `seed`.
+    Top-level `dtype: bfloat16` runs conv/BN in bf16 with fp32 params;
+    decode stays fp32."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg.get("dtype", None) or None)
     b_cfg, n_cfg, h_cfg, l_cfg = cfg["backbone"], cfg["neck"], cfg["head"], cfg["loss"]
@@ -170,6 +296,8 @@ def build_model(cfg: dict, num_classes: int, device=None,
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
                 _lecun_normal_(m.weight, gen)
+            elif isinstance(m, ImplicitHead):
+                m.reset_implicit_(gen)
     module = module.to(device).eval()
     loss = LOSSES[l_cfg["name"]](l_cfg, num_classes)
     return DetectionModel(module=module, loss=loss, num_classes=num_classes,

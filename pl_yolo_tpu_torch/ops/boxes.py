@@ -1,8 +1,11 @@
 """Box format conversions and the IoU family (port of
-`pl_yolo_tpu/ops/boxes.py`, the part the YOLOX paths use). Plain tensor
-functions over a trailing box dim of 4; leading dims broadcast."""
+`pl_yolo_tpu/ops/boxes.py`, the part the YOLOX and anchor-based paths use).
+Plain tensor functions over a trailing box dim of 4; leading dims
+broadcast."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,14 +77,63 @@ def giou(pred: torch.Tensor, target: torch.Tensor, fmt_cxcywh: bool = True,
     return iou - (c_area - union) / c_area
 
 
+def _enclosing_diag2_and_center_dist2(p: torch.Tensor, t: torch.Tensor,
+                                      eps: float):
+    """(squared diagonal of the enclosing box + eps, squared distance of
+    the centres) of xyxy boxes."""
+    cw = torch.maximum(p[..., 2], t[..., 2]) - torch.minimum(p[..., 0], t[..., 0])
+    ch = torch.maximum(p[..., 3], t[..., 3]) - torch.minimum(p[..., 1], t[..., 1])
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = (((t[..., 0] + t[..., 2]) - (p[..., 0] + p[..., 2])) ** 2
+            + ((t[..., 1] + t[..., 3]) - (p[..., 1] + p[..., 3])) ** 2) / 4.0
+    return c2, rho2
+
+
+def ciou(pred: torch.Tensor, target: torch.Tensor, fmt_cxcywh: bool = True,
+         eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise complete IoU. The aspect term's weight `alpha` is a
+    constant to autograd (computed under `no_grad`, the JAX package's
+    `stop_gradient`)."""
+    if fmt_cxcywh:
+        p, t = cxcywh2xyxy(pred), cxcywh2xyxy(target)
+    else:
+        p, t = pred, target
+    iou = elementwise_iou(p, t, fmt_cxcywh=False, eps=eps)
+    pw = (p[..., 2] - p[..., 0]).clamp(min=eps)
+    ph = (p[..., 3] - p[..., 1]).clamp(min=eps)
+    tw = (t[..., 2] - t[..., 0]).clamp(min=eps)
+    th = (t[..., 3] - t[..., 1]).clamp(min=eps)
+    c2, rho2 = _enclosing_diag2_and_center_dist2(p, t, eps)
+    v = (4.0 / math.pi ** 2) * (torch.atan(tw / th) - torch.atan(pw / ph)) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1.0 + eps)).clamp(min=eps)
+    return iou - (rho2 / c2 + v * alpha)
+
+
+def diou(pred: torch.Tensor, target: torch.Tensor, fmt_cxcywh: bool = True,
+         eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise distance IoU."""
+    if fmt_cxcywh:
+        p, t = cxcywh2xyxy(pred), cxcywh2xyxy(target)
+    else:
+        p, t = pred, target
+    iou = elementwise_iou(p, t, fmt_cxcywh=False, eps=eps)
+    c2, rho2 = _enclosing_diag2_and_center_dist2(p, t, eps)
+    return iou - rho2 / c2
+
+
 def iou_loss(pred: torch.Tensor, target: torch.Tensor,
              loss_type: str = "giou", fmt_cxcywh: bool = True
              ) -> torch.Tensor:
-    """IoU losses, elementwise: 'iou' -> 1 - iou^2, 'giou' -> 1 - giou.
-    ('ciou' and 'diou' belong to the anchor families and are not ported.)"""
+    """IoU losses, elementwise: 'iou' -> 1 - iou^2, 'giou' -> 1 - giou,
+    'ciou' -> 1 - ciou, 'diou' -> 1 - diou."""
     if loss_type == "iou":
         iou = elementwise_iou(pred, target, fmt_cxcywh=fmt_cxcywh)
         return 1.0 - iou ** 2
     if loss_type == "giou":
         return 1.0 - giou(pred, target, fmt_cxcywh=fmt_cxcywh).clamp(-1.0, 1.0)
+    if loss_type == "ciou":
+        return 1.0 - ciou(pred, target, fmt_cxcywh=fmt_cxcywh)
+    if loss_type == "diou":
+        return 1.0 - diou(pred, target, fmt_cxcywh=fmt_cxcywh)
     raise ValueError(f"Unsupported iou loss type: {loss_type}")

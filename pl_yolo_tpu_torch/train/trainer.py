@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import signal
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +61,20 @@ def check_ported(model_cfg: dict, data_cfg: dict) -> None:
             "transform: {multiscale_sizes} (multi-scale training) is not "
             "ported yet (ROADMAP queue A, item 11)")
     check_config(AugmentConfig.from_dict(t_cfg))  # degrees, shear, ...
+
+
+def finite_detections(json_list: list, before: str) -> list:
+    """The COCO result dicts whose score and box are finite; warns with the
+    count of those dropped, as the COCO evaluation does. (A model a few
+    steps from its init can decode an infinite box, on which the drawing
+    would raise.)"""
+    finite = [d for d in json_list
+              if np.isfinite(d["score"]) and np.all(np.isfinite(d["bbox"]))]
+    if len(finite) != len(json_list):
+        warnings.warn(f"dropped {len(json_list) - len(finite)} non-finite "
+                      f"detections before {before}", RuntimeWarning,
+                      stacklevel=2)
+    return finite
 
 
 class Trainer:
@@ -328,7 +343,8 @@ class Trainer:
                            "nms_s": float(np.mean(nms_t)),
                            "format_s": format_s}
         if visualize and dataset is not None:
-            n = coco_visualization(json_list, dataset, out_dir=show_dir,
+            n = coco_visualization(finite_detections(json_list, "drawing"),
+                                   dataset, out_dir=show_dir,
                                    score_thr=show_score_thr,
                                    class_names=self.datamodule.class_names)
             print(f"wrote {n} visualizations to {show_dir}")

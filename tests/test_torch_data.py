@@ -53,6 +53,7 @@ COPIES = {
         for f in ("boxes", "scores", "classes", "valid"))),
     "utils/visualize.py": ("utils/visualize.py", (), ()),
     "utils/logger.py": ("utils/logger.py", (), ()),
+    "utils/autoanchor.py": ("utils/autoanchor.py", (), ()),
 }
 
 

@@ -83,10 +83,13 @@ def test_elementwise_iou_family_matches_jax(fn, kw):
 
 
 def test_unported_iou_loss_types_raise():
+    """Only an unknown type raises: 'ciou' and 'diou' came with the anchor
+    families (held to JAX in test_torch_anchor.py)."""
     b = torch.ones(2, 4)
-    for loss_type in ("ciou", "diou", "nope"):
-        with pytest.raises(ValueError, match="Unsupported iou loss type"):
-            tboxes.iou_loss(b, b, loss_type)
+    with pytest.raises(ValueError, match="Unsupported iou loss type"):
+        tboxes.iou_loss(b, b, "nope")
+    for loss_type in ("ciou", "diou"):
+        assert torch.isfinite(tboxes.iou_loss(b, b, loss_type)).all()
 
 
 # ------------------------------------------------------- SimOTA and loss

@@ -135,8 +135,8 @@ def test_postprocess_matches_jax(slice_outputs, source, mode):
 
 def test_unknown_registry_name_raises():
     cfg = _tiny_cfg()
-    cfg["neck"]["name"] = "yolov7neck"
-    with pytest.raises(KeyError, match="Unknown neck 'yolov7neck'"):
+    cfg["neck"]["name"] = "al_pafpn"  # not ported yet (ROADMAP item 10)
+    with pytest.raises(KeyError, match="Unknown neck 'al_pafpn'"):
         build_model(cfg, NUM_CLASSES, device="cpu")
 
 

@@ -488,5 +488,12 @@ def test_config_copy_equals_the_jax_packages(path):
 
 
 def test_all_yolox_configs_are_copied():
+    """The model YAMLs the port builds: the YOLOX family and the anchor
+    families (YOLOv7, YOLOv5-s)."""
     names = {p.name for p in (CONFIG_DIR / "model").glob("*.yaml")}
-    assert names == {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x")}
+    assert names == (
+        {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x")}
+        | {f"{n}.yaml" for n in ("yolov7", "yolov7_tiny", "al_yolov7",
+                                 "al_yolov7_tiny", "gc10_yolov7",
+                                 "neu_yolov7", "neu_yolov7_tiny",
+                                 "yolov5_s")})
