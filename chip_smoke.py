@@ -94,9 +94,35 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      `torch.topk`); `python -m pl_yolo_tpu_torch -c yolov7.yaml` on 32
      JPEGs for one epoch and a validation that prints mAP; `yolov5_s.yaml`:
      2 augmented steps on the s2d route and a request; the YOLOv3 loss and
-     gradients on the card against the CPU.
+     gradients on the card against the CPU;
+ 12. the accuracy gate and the YOLOX trainer's options: (a) the port's
+     `yolox_tiny` accuracy gate at its full recipe
+     (`pl_yolo_tpu_torch.tools.accuracy_gate`: 100 epochs on 400 generated
+     hard-shapes images at 160^2, B=32), its held-out mAP asserted against
+     the floor 0.25 and printed beside the JAX package's line, with its wall
+     time and the launches of the warp, top-k and NMS kernels over the fit;
+     the fit's own calls of the three kernels, recorded at each shape they
+     met (a step's pair-IoU and -cost rows [32,M,525], its mosaic and mixup
+     warps of 160^2 tiles, a validation batch's NMS), run again against
+     their plain versions, bit for bit;
+     (b) `yolox_s_dropblock.yaml` at full width, bf16, B=16, through
+     `Trainer.fit` on 128 synthetic JPEGs with `accumulate_steps: 2`,
+     `remat: true` and multi-scale buckets [576^2, 704^2] every 2 steps:
+     finite losses, the params unchanged after each odd micro-step and
+     changed after each even one, the buckets visited at their sizes, and
+     the fit's kernel calls held to their plain versions as in (a) (top-k
+     rows of A = 8400, 6804 and 10164); the peak memory of the augmented
+     step at 640^2 with and without `remat`;
+     (c) 3 augmented steps with degrees 10, shear 2 and perspective 5e-4
+     (the general-gather route, NHWC, no warp launch): finite losses, labels
+     inside the canvas, the card's batch against the CPU's on the same
+     draws; (d) `utils.profiler.trace` around 3 steps of (a)'s model, its
+     top device ops printed, and `StepTimer`'s mean step.
 
-The script's total wall time is printed before the card's line. The line
+The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
+epochs each) run through the gate's own command, not here: with them the
+script would take ~15 minutes. The script's total wall time is printed
+before the card's line. The line
 before the last is the `kernels` JSON record (the top-k kernel twice: on
 the YOLOX path's rows and on the YOLOv7 OTA's), and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -182,6 +208,29 @@ STEP_SPLIT_STEPS = 4  # a timing of the bare step beside a busy loader
 V7_CONFIG = ROOT / "pl_yolo_tpu_torch" / "configs" / "model" / "yolov7.yaml"
 V5_CONFIG = ROOT / "pl_yolo_tpu_torch" / "configs" / "model" / "yolov5_s.yaml"
 ANCHOR_CLI_IMAGES = 32  # 2 steps at B=16, then a validation
+# phase 12: the port's accuracy gate and the YOLOX trainer's options
+GATE_MODEL = "yolox_tiny"
+# the JAX package's gate lines (GATE_RESULTS.jsonl lines 3, 14 and 13:
+# 100 epochs; 200 with autoanchor), mAP and mAP50, printed beside the port's
+JAX_GATE = {"yolox_tiny": (0.3368, 0.5438), "yolov7_tiny": (0.141, 0.2701),
+            "yolov5_s": (0.2899, 0.4564)}
+GATE_KERNELS = ("mosaic_warp", "topk_rows", "nms_suppress")
+# where the YOLOX path calls each of them (the module and the name it calls
+# the wrapper by), and how many calls of one shape phase 12 records there:
+# a step's pair-IoU and -cost rows share one
+PATH_CALL_SITES = {"topk_rows": ("pl_yolo_tpu_torch.ops.topk", 2),
+                   "mosaic_warp": ("pl_yolo_tpu_torch.ops.mosaic", 1),
+                   "nms_suppress": ("pl_yolo_tpu_torch.ops.nms", 1)}
+OPTIONS_CONFIG = (ROOT / "pl_yolo_tpu_torch" / "configs" / "model"
+                  / "yolox_s_dropblock.yaml")
+OPTIONS_IMAGES = 128  # 8 micro-steps at B=16: 4 updates of accumulate_steps 2
+MULTISCALE_SIZES, MULTISCALE_INTERVAL = [[576, 576], [704, 704]], 2
+# the trainer's seed there: its bucket draws, every 2 steps from
+# default_rng(seed + 7), visit all three buckets in 8 steps (base, 704, 576)
+OPTIONS_SEED = 4
+GENERAL_AUG = dict(degrees=10.0, shear=2.0, perspective=0.0005)
+GENERAL_STEPS, GENERAL_CHECK_BATCH = 3, 4
+PROFILE_STEPS, MEMORY_STEPS = 3, 2
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -1636,6 +1685,415 @@ def phase_anchor(torch, card: str, dev) -> dict:
             "records": rec}
 
 
+def path_call_recorder(torch):
+    """A context that records copies of the inputs of the calls the path
+    makes to `topk_rows`, `mosaic_warp` and `nms_suppress`, the first ones
+    at each shape (PATH_CALL_SITES says how many), while the calls run
+    unchanged; it yields {kernel name: {shape: [(args, kwargs), ...]}}."""
+    import contextlib
+    import importlib
+
+    def shape_of(a):
+        return (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+
+    def copy_of(a):
+        return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    @contextlib.contextmanager
+    def record():
+        records = {name: {} for name in PATH_CALL_SITES}
+        saved = {}
+        for name, (where, per_shape) in PATH_CALL_SITES.items():
+            module = importlib.import_module(where)
+            fn = getattr(module, name)
+            saved[name] = module, fn
+
+            def recording(*args, _name=name, _fn=fn, _n=per_shape, **kw):
+                key = (tuple(shape_of(a) for a in args)
+                       + tuple(sorted(kw.items())))
+                calls = records[_name].setdefault(key, [])
+                if len(calls) < _n:
+                    calls.append((tuple(copy_of(a) for a in args), kw))
+                return _fn(*args, **kw)
+            setattr(module, name, recording)
+        try:
+            yield records
+        finally:
+            for name, (module, fn) in saved.items():
+                setattr(module, name, fn)
+    return record
+
+
+def path_calls_equal_plain(torch, records, what: str) -> dict:
+    """Run each call `path_call_recorder` recorded again through its kernel
+    and through its plain version, and fail unless the two agree bit for
+    bit. Returns {kernel name: (max |kernel - plain|, [the shapes])}."""
+    from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp, warp_plain
+    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import (nms_suppress,
+                                                         suppress_plain)
+    from pl_yolo_tpu_torch.ops.cuda.topk import topk_plain, topk_rows
+
+    def warp_plain_of(*args, **kw):
+        return warp_plain(*with_origins(torch, args), **kw)
+
+    def shape(name, args):
+        if name == "topk_rows":
+            return f"{list(args[0].shape)} k={args[1]}"
+        if name == "mosaic_warp":
+            b, k = args[1].shape
+            return f"[{b},3,{args[0].shape[2]},{args[0].shape[3]}] K={k}"
+        return f"{list(args[1].shape)} ({int(args[1].sum())} valid)"
+
+    pairs = {"topk_rows": (topk_rows, topk_plain),
+             "mosaic_warp": (mosaic_warp, warp_plain_of),
+             "nms_suppress": (nms_suppress, suppress_plain)}
+    out = {}
+    for name, by_shape in records.items():
+        if not by_shape:
+            raise AssertionError(f"{what}: no call of {name} recorded")
+        kernel, plain = pairs[name]
+        err, shapes = 0.0, []
+        for calls in by_shape.values():
+            for args, kw in calls:
+                got, want = kernel(*args, **kw), plain(*args, **kw)
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{name} != plain on {what}'s call "
+                                         f"at {shape(name, args)}")
+                got, want = got.float(), want.float()
+                finite = torch.isfinite(got) & torch.isfinite(want)
+                if bool(finite.any()):
+                    err = max(err, float((got - want)[finite].abs().max()))
+            shapes.append(f"{shape(name, calls[0][0])} x{len(calls)}")
+        out[name] = (err, shapes)
+    return out
+
+
+def describe_path_checks(checks: dict) -> str:
+    return "; ".join(f"{name} on " + ", ".join(shapes)
+                     + f" (max abs err {err})"
+                     for name, (err, shapes) in checks.items())
+
+
+def phase_options(torch, card: str, dev) -> dict:
+    """Phase 12 (see the module docstring), on the card `dev`. Returns the
+    gate's result, its kernels' launch counts, and each kernel's max |kernel
+    - plain| on the calls of (a) and (b)."""
+    from pl_yolo_tpu_torch.data import augment
+    from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
+    from pl_yolo_tpu_torch.layers.drops import DropBlock2d
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.tools import accuracy_gate as gate
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.train.trainer import Trainer
+    from pl_yolo_tpu_torch.utils import profiler
+    from pl_yolo_tpu_torch.utils.config import load_config
+
+    def finite(what, losses):
+        bad = [k for k, v in losses.items() if not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad}")
+
+    def s2d_apply(module, x):
+        with stem_input_s2d():
+            return module(x)
+
+    t_phase = time.perf_counter()
+    record = path_call_recorder(torch)
+    errs = dict.fromkeys(GATE_KERNELS, 0.0)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_options_"))
+    try:
+        # (a) the accuracy gate, its full recipe and its own floor, whatever
+        # the environment says
+        note("accuracy gate")
+        floor = gate.DEFAULT_FLOORS[GATE_MODEL][0]
+        args = gate.argument_parser().parse_args(
+            ["--model", GATE_MODEL, "--root", str(tmp / "shapes"), "--out",
+             str(tmp / "gate"), "--results", str(tmp / "gate.jsonl"),
+             "--device", str(dev), "--floor", str(floor)])
+        t0 = time.perf_counter()
+        device, model_cfg, data_cfg = gate.prepare(args)
+        log(f"[gate] data set written in {time.perf_counter() - t0:.1f} s: "
+            f"400 train and 100 val hard-shapes images at {gate.GATE_SIZE}^2")
+        reset_launch_counts()
+        with record() as calls:
+            result, trainer = gate.run(args, device, model_cfg, data_cfg)
+        counts = {k: v for k, v in launch_counts().items()
+                  if k in GATE_KERNELS}
+        steps = int(trainer.state.step)
+        jax_map, jax_map50 = JAX_GATE[GATE_MODEL]
+        log(f"[gate] {json.dumps(result)}")
+        log(f"[gate] {GATE_MODEL}, {result['epochs']} epochs ({steps} steps "
+            f"of B={trainer.datamodule.train_batch_size}) at "
+            f"{gate.GATE_SIZE}^2: held-out mAP {result['mAP']:.4f}, mAP50 "
+            f"{result['mAP50']:.4f} (the JAX package's gate: {jax_map} / "
+            f"{jax_map50}; floor {result['floor']}), wall {result['wall_s']}"
+            f" s; launches over the fit: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f" on {card}")
+        if not (trainer.best_map >= floor and result["pass"]):
+            raise AssertionError(f"accuracy gate failed: mAP "
+                                 f"{trainer.best_map} < floor {floor}")
+        if min(counts.values()) == 0:
+            raise AssertionError(f"the gate's fit launched a kernel of its "
+                                 f"path no time: {counts}")
+        # the kernels on the fit's own inputs, at the shapes it gave them
+        checks = path_calls_equal_plain(torch, calls, "the gate's fit")
+        a_gate = sum((gate.GATE_SIZE // s) ** 2 for s in (8, 16, 32))
+        warp_k = {key[1][0][1] for key in calls["mosaic_warp"]}
+        if not ({key[0][0][-1] for key in calls["topk_rows"]} == {a_gate}
+                and warp_k == {4, 1}):
+            raise AssertionError(f"the gate's fit: top-k rows "
+                                 f"{list(calls['topk_rows'])}, warps "
+                                 f"{list(calls['mosaic_warp'])}")
+        for name, (err, _) in checks.items():
+            errs[name] = max(errs[name], err)
+        log(f"[gate] kernel == plain (bit for bit) on the fit's own calls: "
+            f"{describe_path_checks(checks)} on {card}")
+        del calls
+
+        # (d) the profiler around 3 steps of the gate's model
+        note("profiler")
+        g = torch.Generator(device=dev).manual_seed(0)
+        b, hw = trainer.datamodule.train_batch_size, gate.GATE_SIZE
+        images = (torch.rand((b, hw, hw, 3), generator=g, device=dev)
+                  * 255).to(torch.uint8)
+        labels = torch.zeros((b, 50, 5), device=dev)
+        labels[:, :4, 0] = torch.randint(0, 6, (b, 4), generator=g,
+                                         device=dev).float()
+        labels[:, :4, 1:] = 16 + torch.rand((b, 4, 4), generator=g,
+                                            device=dev) * 96
+        step = trainer.make_step()
+        step(trainer.state, images, labels, generator=g)
+        torch.cuda.synchronize(dev)
+        timer = profiler.StepTimer()
+        with profiler.trace(str(tmp / "trace")) as prof:
+            for _ in range(PROFILE_STEPS):
+                timer.start()
+                with profiler.annotate("train_step"):
+                    losses = step(trainer.state, images, labels, generator=g)
+                timer.stop(losses["loss"])
+        finite("profiled step", losses)
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or getattr(e, "is_user_annotation", False):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((us / PROFILE_STEPS, e.key))
+        rows.sort(reverse=True)
+        trace_file = tmp / "trace" / "trace.json"
+        if not trace_file.stat().st_size or not rows:
+            raise AssertionError("profiler.trace: no trace file or no "
+                                 "device time")
+        log(f"[profiler] trace of {PROFILE_STEPS} steps of {GATE_MODEL} at "
+            f"B={b}, {hw}^2 ({trace_file.stat().st_size / 1e6:.1f} MB): "
+            f"StepTimer mean {timer.mean * 1e3:.2f} ms a step (first "
+            f"dropped), device busy {sum(r[0] for r in rows) / 1e3:.2f} ms "
+            f"a step; top device ops, us a step: "
+            + "; ".join(f"{k[:48]} {us:.1f}" for us, k in rows[:8])
+            + f" on {card}")
+        del trainer, step
+
+        # (b) yolox_s_dropblock: accumulate_steps, remat, multi-scale
+        note("yolox_s_dropblock: accumulate, remat, buckets")
+        write_coco(tmp / "coco", OPTIONS_IMAGES, NUM_CLASSES, seed=3)
+        model_cfg = load_config(OPTIONS_CONFIG)
+        model_cfg["remat"] = True
+        model_cfg["optimizer"]["accumulate_steps"] = 2
+        model_cfg["schedule"]["no_aug_epochs"] = 0
+        _, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        data_cfg["transform"].update(
+            multiscale_sizes=MULTISCALE_SIZES,
+            multiscale_interval=MULTISCALE_INTERVAL)
+        trainer = Trainer(model_cfg, data_cfg, max_epochs=1,
+                          check_val_every_n_epoch=1,
+                          output_dir=str(tmp / "runs"), logger="csv",
+                          seed=OPTIONS_SEED, device=dev)
+        module = trainer.model.module
+        drops = [m for m in module.modules() if isinstance(m, DropBlock2d)]
+        if not (module.backbone.remat and module.neck.remat
+                and len(drops) == 4):
+            raise AssertionError("yolox_s_dropblock: remat or DropBlock off")
+        weight = module.head.cls_pred0.weight
+        micro = []
+        make_step = trainer.make_step
+
+        def recording_make_step(out_hw=None):
+            step_fn = make_step(out_hw)
+
+            def step(state, images, labels, **kw):
+                before = weight.detach().clone()
+                losses = step_fn(state, images, labels, **kw)
+                micro.append((out_hw, torch.equal(before, weight),
+                              {k: float(v) for k, v in losses.items()}))
+                return losses
+            return step
+        trainer.make_step = recording_make_step
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with record() as calls:
+            trainer.fit()
+        fit_s = time.perf_counter() - t0
+        fit_counts = launch_counts()
+        for n, (hw, unchanged, losses) in enumerate(micro):
+            finite(f"yolox_s_dropblock micro-step {n}", losses)
+            if unchanged != (n % 2 == 0):
+                raise AssertionError(
+                    f"accumulate_steps 2: params "
+                    f"{'unchanged' if unchanged else 'changed'} after "
+                    f"micro-step {n + 1}")
+        sizes = [tuple(hw) if hw else (SIZE, SIZE) for hw, _, _ in micro]
+        visited = sorted(set(sizes))
+        if len(micro) != OPTIONS_IMAGES // BATCH or len(visited) != 3 \
+                or trainer.state.optimizer.updates != len(micro) // 2:
+            raise AssertionError(f"buckets {sizes}, micro-steps {len(micro)}")
+        log(f"[options] yolox_s_dropblock.yaml (DropBlock 0.1/7 after each "
+            f"stage), bf16, B={BATCH}, remat: true, accumulate_steps: 2, "
+            f"buckets {[[SIZE, SIZE]] + MULTISCALE_SIZES} every "
+            f"{MULTISCALE_INTERVAL} steps: Trainer.fit {len(micro)} "
+            f"micro-steps in {fit_s:.1f} s (validation included), sizes "
+            + " ".join(f"{hw[0]}" for hw in sizes)
+            + "; params unchanged after micro-steps "
+            + ",".join(str(n + 1) for n, m in enumerate(micro) if m[1])
+            + ", changed after "
+            + ",".join(str(n + 1) for n, m in enumerate(micro) if not m[1])
+            + "; loss " + " ".join(f"{m[2]['loss']:.3f}" for m in micro)
+            + f"; best mAP {trainer.best_map:.4f}; launches "
+            + ", ".join(f"{k} {v}" for k, v in fit_counts.items())
+            + f" on {card}")
+        if min(fit_counts[k] for k in GATE_KERNELS) == 0:
+            raise AssertionError(f"the yolox_s_dropblock fit launched a "
+                                 f"kernel of its path no time: {fit_counts}")
+        checks = path_calls_equal_plain(torch, calls,
+                                        "the yolox_s_dropblock fit")
+        row_lengths = {key[0][0][-1] for key in calls["topk_rows"]}
+        want = {sum((hw[0] // s) ** 2 for s in (8, 16, 32))
+                for hw in [[SIZE, SIZE]] + MULTISCALE_SIZES}
+        if row_lengths != want:
+            raise AssertionError(f"yolox_s_dropblock: top-k rows of A "
+                                 f"{sorted(row_lengths)}, not {sorted(want)}")
+        for name, (err, _) in checks.items():
+            errs[name] = max(errs[name], err)
+        log(f"[options] kernel == plain (bit for bit) on the "
+            f"yolox_s_dropblock fit's own calls, every bucket: "
+            f"{describe_path_checks(checks)} on {card}")
+        del trainer, module, weight, calls
+
+        # the augmented step's peak memory at 640^2 with and without remat
+        note("remat peak memory")
+        images = bench_images(torch, dev, BATCH)
+        labels = train_labels(torch, dev, BATCH)
+        aug_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS)
+        peaks = {}
+        for remat in (False, True):
+            cfg = load_config(OPTIONS_CONFIG)
+            cfg["remat"] = remat
+            model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
+            optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                           total_steps=TOTAL_STEPS)
+            state = TrainState.create(model.module, optimizer)
+            step = make_train_step(
+                model.loss.train_loss, apply_fn=s2d_apply,
+                augment_fn=augment.make_augment_fn(aug_cfg, out_s2d=True))
+            g = torch.Generator(device=dev).manual_seed(1)
+            finite(f"remat {remat} warm-up step",
+                   step(state, images, labels, generator=g))
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            for _ in range(MEMORY_STEPS):
+                losses = step(state, images, labels, generator=g)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) / MEMORY_STEPS * 1e3
+            finite(f"remat {remat} step", losses)
+            peaks[remat] = (torch.cuda.max_memory_allocated(dev), resident,
+                            ms)
+            del model, optimizer, state, step, losses
+            torch.cuda.empty_cache()
+        (p0, r0, ms0), (p1, r1, ms1) = peaks[False], peaks[True]
+        gib = 1024 ** 3
+        log(f"[options] remat peak memory of the augmented step, "
+            f"yolox_s_dropblock bf16 B={BATCH} {SIZE}^2: without "
+            f"{p0 / gib:.2f} GiB ({(p0 - r0) / gib:.2f} above the "
+            f"{r0 / gib:.2f} resident), with {p1 / gib:.2f} GiB "
+            f"({(p1 - r1) / gib:.2f} above), {1 - p1 / p0:.3f} lower; step "
+            f"{ms0:.1f} / {ms1:.1f} ms (host clock, {MEMORY_STEPS} steps) "
+            f"on {card}")
+        if not p1 < p0:
+            raise AssertionError(f"remat did not lower the peak: {peaks}")
+
+        # (c) the general-gather augmentation on the NHWC route
+        note("general-gather augmentation")
+        gen_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS,
+                                        **GENERAL_AUG)
+        cfg = load_config(CONFIG)
+        model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
+        optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                       total_steps=TOTAL_STEPS)
+        state = TrainState.create(model.module, optimizer)
+        step = make_train_step(model.loss.train_loss,
+                               augment_fn=augment.make_augment_fn(
+                                   gen_cfg, out_s2d=False))
+        g = torch.Generator(device=dev).manual_seed(2)
+        before = launch_counts()
+        gen_losses = []
+        for n in range(GENERAL_STEPS):
+            gen_losses.append({k: float(v) for k, v in step(
+                state, images, labels, generator=g).items()})
+            finite(f"general-gather step {n}", gen_losses[-1])
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        if launched["mosaic_warp"] != 0 \
+                or launched["topk_rows"] != 2 * GENERAL_STEPS:
+            raise AssertionError(f"general-gather steps launched {launched}")
+        draws = augment.sample_draws(g, BATCH, (SIZE, SIZE), gen_cfg)
+        img, lab = augment.device_augment(draws, images, labels, gen_cfg)
+        kept = lab[lab.abs().sum(-1) > 0]
+        cx, cy, w, h = kept[:, 1:].unbind(-1)
+        inside = bool(((cx - w / 2 >= -1e-3) & (cx + w / 2 <= SIZE + 1e-3)
+                       & (cy - h / 2 >= -1e-3) & (cy + h / 2 <= SIZE + 1e-3)
+                       & (w > 2) & (h > 2)).all())
+        if not (inside and len(kept) and bool(torch.isfinite(img).all())):
+            raise AssertionError("general-gather batch: labels outside the "
+                                 "canvas or non-finite pixels")
+        n = GENERAL_CHECK_BATCH
+        sub = augment.AugmentDraws(*(t[:n] for t in draws))
+        sub = sub._replace(perm=torch.randperm(n, generator=g, device=dev),
+                           mix_idx=torch.randperm(n, generator=g,
+                                                  device=dev))
+        card_img, card_lab = augment.device_augment(sub, images[:n],
+                                                    labels[:n], gen_cfg)
+        cpu_img, cpu_lab = augment.device_augment(
+            sub.to("cpu"), images[:n].cpu(), labels[:n].cpu(), gen_cfg)
+        lab_err = float((card_lab.cpu() - cpu_lab).abs().max())
+        same_rows = torch.equal(card_lab.cpu().abs().sum(-1) > 0,
+                                cpu_lab.abs().sum(-1) > 0)
+        pix = (card_img.cpu() - cpu_img).abs()
+        log(f"[options] general-gather augmentation (degrees 10, shear 2, "
+            f"perspective 5e-4), NHWC, yolox_s.yaml bf16 B={BATCH} {SIZE}^2:"
+            f" {GENERAL_STEPS} steps, loss "
+            + " ".join(f"{ls['loss']:.4f}" for ls in gen_losses)
+            + f", launches {launched}; {len(kept)} labels kept, all inside "
+            f"the canvas; card vs CPU on the same draws (B={n}): labels max "
+            f"abs err {lab_err:.3e} px (tolerance {AUG_LABEL_TOL}), valid "
+            f"rows equal {same_rows}; pixels max {float(pix.max()):.3f}, "
+            f"mean {float(pix.mean()):.3e} (tolerance {AUG_PIXEL_TOL}) on "
+            f"{card}")
+        if not (lab_err <= AUG_LABEL_TOL and same_rows
+                and float(pix.max()) <= AUG_PIXEL_TOL[0]
+                and float(pix.mean()) <= AUG_PIXEL_TOL[1]):
+            raise AssertionError("the card's general-gather augmentation "
+                                 "!= the CPU's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[options] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"gate": result, "launches": counts, "max_abs_err": errs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2677,6 +3135,13 @@ def main() -> int:
     def v7_mean(key):
         recs = [v7["records"]["M=50", name] for name in ("IoU", "-cost")]
         return sum(r[key] for r in recs) / len(recs)
+
+    # 12. the accuracy gate and the YOLOX trainer's options
+    note("accuracy gate and options")
+    options = phase_options(torch, card, dev)
+    max_err = max(max_err, options["max_abs_err"]["nms_suppress"])
+    topk_err = max(topk_err, options["max_abs_err"]["topk_rows"])
+    warp_err = max(warp_err, options["max_abs_err"]["mosaic_warp"])
 
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)

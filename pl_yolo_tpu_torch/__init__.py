@@ -47,6 +47,14 @@ loss and decode; CIoU / DIoU; RepConv fusion (`utils.fuse`); and the
 copied anchor-family YAMLs, which the trainer and CLI train on the NHWC
 augmentation (E-ELAN has no Focus stem).
 
+Slice 9 covers the accuracy gate (`tools.accuracy_gate`, on the hard-shapes
+set of `tools.make_shapes_dataset`), the profiler (`utils.profiler`) and
+the YOLOX trainer's remaining options: DropBlock / DropPath
+(`layers.drops`), `norm: ln`, `remat: true` (`layers.blocks.
+maybe_checkpoint`), `optimizer: {accumulate_steps}`, multi-scale buckets
+(`data.augment.multiscale_resize`) and the general-gather augmentation
+for degrees, shear and perspective.
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

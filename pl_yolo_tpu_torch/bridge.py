@@ -9,14 +9,15 @@ to a torch key by a rename, plus a transpose for conv kernels:
          [kh,kw,1,c] are the same case: the group layout is kept)
     params/<path>/bias                              <-> <path>.bias
     params/<path>/bn/scale, bn/bias                 <-> <path>.bn.weight, bn.bias
+    params/<path>/ln/scale, ln/bias                 <-> <path>.ln.weight, ln.bias
     batch_stats/<path>/bn/mean, bn/var              <-> <path>.bn.running_mean,
                                                         bn.running_var
     params/<path>/ia{k}, im{k} [1,1,1,C]            <-> <path>.ia{k}, im{k}
                                                         [1,C,1,1]
 
 A BatchNorm is a module named `bn`, or one of RepConv's `rbr_dense_bn`,
-`rbr_1x1_bn` and `rbr_identity`; `ia{k}` and `im{k}` are the implicit
-head's priors.
+`rbr_1x1_bn` and `rbr_identity`; a LayerNorm (`norm: ln`) is named `ln`;
+`ia{k}` and `im{k}` are the implicit head's priors.
 
 `num_batches_tracked` (torch only) is written as 0 and dropped on the way
 back. Input is the numpy tree of `jax.device_get(model.init(...))` or the
@@ -40,6 +41,7 @@ from torch import nn
 
 _NPZ_META = "__meta__"
 _BN_NAMES = frozenset({"bn", "rbr_dense_bn", "rbr_1x1_bn", "rbr_identity"})
+_LN_NAME = "ln"
 _IMPLICIT = re.compile(r"i[am]\d+")  # the implicit head's priors
 
 
@@ -57,6 +59,7 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 def _to_torch_key(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
     collection, *mod, leaf = path
     in_bn = bool(mod) and mod[-1] in _BN_NAMES
+    in_ln = bool(mod) and mod[-1] == _LN_NAME
     if collection == "params":
         if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
             return ".".join(mod + [leaf]), value.transpose(0, 3, 1, 2)
@@ -64,7 +67,7 @@ def _to_torch_key(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
             return ".".join(mod + ["weight"]), value.transpose(3, 2, 0, 1)
         if leaf == "bias":
             return ".".join(mod + ["bias"]), value
-        if leaf == "scale" and in_bn:
+        if leaf == "scale" and (in_bn or in_ln):
             return ".".join(mod + ["weight"]), value
     elif collection == "batch_stats" and in_bn:
         if leaf in ("mean", "var"):
@@ -109,12 +112,14 @@ def load_variables(module: nn.Module, variables: Mapping) -> nn.Module:
 
 def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """torch state_dict -> nested numpy {"params": ..., "batch_stats": ...}
-    in the flax layout. Raises KeyError on a key it cannot map."""
+    in the flax layout, each array a copy (the module may train on). Raises
+    KeyError on a key it cannot map."""
     out: dict = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
         value = t.detach().cpu().numpy()
         in_bn = bool(mod) and mod[-1] in _BN_NAMES
+        in_ln = bool(mod) and mod[-1] == _LN_NAME
         if leaf == "num_batches_tracked" and in_bn:
             continue
         if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
@@ -123,7 +128,7 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
             collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
         elif leaf == "bias":
             collection, name = "params", "bias"
-        elif leaf == "weight" and in_bn:
+        elif leaf == "weight" and (in_bn or in_ln):
             collection, name = "params", "scale"
         elif leaf in ("running_mean", "running_var") and in_bn:
             collection, name = "batch_stats", leaf[len("running_"):]
@@ -132,7 +137,7 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
         node = out[collection]
         for part in mod:
             node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(value)
+        node[name] = np.array(value, order="C")  # a copy, never a view
     return out
 
 

@@ -13,14 +13,19 @@ is deterministic given the draws. The JAX package draws inside its
 functions from a key tree, which torch cannot reproduce, so the tests
 rebuild the same record from a JAX key and feed both sides the same numbers.
 
-The port has one sampling route, the JAX package's channel-major "chw" one:
-the mosaic (4 tiles: the image and the partners `perm[(b+i) % B]`, i=1..3)
-and the mixup partner (`mix_idx[b]`) are sampled from one [B,3,H,W] pool by
-`ops.mosaic` (the hand-written CUDA kernel on the card), then the blend,
-HSV and flip run on full channel planes. Only separable affines are ported
-(degrees = shear = perspective = 0, as every shipped data config sets);
-the general-gather path raises `NotImplementedError`. Images are 0..255
-throughout; the fill is 114.
+Separable affines (degrees = shear = perspective = 0, as every shipped data
+config sets) take the JAX package's channel-major "chw" route: the mosaic (4
+tiles: the image and the partners `perm[(b+i) % B]`, i=1..3) and the mixup
+partner (`mix_idx[b]`) are sampled from one [B,3,H,W] pool by `ops.mosaic`
+(the hand-written CUDA kernel on the card), then the blend, HSV and flip run
+on full channel planes. A rotation, shear or perspective takes the general-
+gather route for the mosaic, as in the JAX package (`_mosaic_general`: the 4
+tiles pasted into their 2H x 2W window and sampled at every output pixel's
+inverse-affine coordinates, plain torch gathers), and its mixup partner too
+(`separable_sample`), as the JAX package runs that route outside its
+kernels. The perspective term is read but, as in the JAX package, only
+selects that route. `multiscale_resize` resizes an augmented batch to a
+multi-scale bucket. Images are 0..255 throughout; the fill is 114.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ import torch
 from .. import resolve_device
 from ..ops.mosaic import (from_chw, mosaic_sample_idx, to_chw,
                           warp_sample_idx)
+
+
+FILL = 114.0
 
 
 class AugmentConfig(NamedTuple):
@@ -83,11 +91,6 @@ class AugmentConfig(NamedTuple):
 
 def check_config(cfg: AugmentConfig) -> None:
     """Raise on the options the port does not take."""
-    if not cfg.separable:
-        raise NotImplementedError(
-            "degrees, shear and perspective != 0 need the general-gather "
-            "augmentation path, which is not ported yet (ROADMAP queue A, "
-            "item 11)")
     if cfg.use_pallas not in ("auto", "on"):
         raise ValueError(
             f"use_pallas={cfg.use_pallas!r}: the port has one sampling route "
@@ -107,7 +110,8 @@ class AugmentDraws(NamedTuple):
     gates: torch.Tensor       # [B,4] U[0,1): mosaic, mixup, HSV, flip
     center: torch.Tensor      # [B,2] mosaic centre (cx ~ U[w/2, 3w/2), cy)
     affine: torch.Tensor      # [B,6] angle (rad), scale, tan shear x, y,
-    #                           translate fractions x, y
+    #                           translate fractions x, y (rotation and shear
+    #                           0 unless degrees / shear are set)
     hsv_gains: torch.Tensor   # [B,3] U[-1,1): hue, saturation, value
     mix_scale: torch.Tensor   # [B] mixup jitter factor ~ U(mixup_scale)
     mix_flip: torch.Tensor    # [B] bool, mixup partner flipped
@@ -336,6 +340,146 @@ def _mixup_geometry(draws: AugmentDraws, labels: torch.Tensor,
     return xs, ys, cand, v & (nw > 1) & (nh > 1)
 
 
+# --------------------------------------------------- the general route
+
+def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    fill: float = FILL) -> torch.Tensor:
+    """General gather sampling: img [B,H,W,C] at float coordinates x, y
+    [B,...] (one pair per output pixel); out of bounds -> fill. The lerp
+    weights and sums are in img's dtype, as the JAX package computes them."""
+    b, h, w, c = img.shape
+    valid = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    x = x.clamp(0.0, w - 1)
+    y = y.clamp(0.0, h - 1)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = (x - x0).to(img.dtype)[..., None]
+    fy = (y - y0).to(img.dtype)[..., None]
+    flat = img.reshape(b, h * w, c)
+
+    def g(yy, xx):
+        idx = (yy * w + xx).reshape(b, -1, 1).expand(-1, -1, c)
+        return torch.gather(flat, 1, idx).reshape(x.shape + (c,))
+    out = (g(y0, x0) * (1 - fx) * (1 - fy) + g(y0, x1) * fx * (1 - fy)
+           + g(y1, x0) * (1 - fx) * fy + g(y1, x1) * fx * fy)
+    return torch.where(valid[..., None], out,
+                       torch.full((), fill, dtype=img.dtype,
+                                  device=img.device))
+
+
+def _paste_window(tiles: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor
+                  ) -> torch.Tensor:
+    """tiles [B,4,H,W,C], origins ox, oy [B,4] int in the 3H x 3W margin
+    canvas (margins H/2, W/2) -> the canvas's central 2H x 2W window after
+    pasting the tiles in order (a later tile over an earlier one), fill
+    elsewhere; a gather a tile."""
+    b, nk, h, w, c = tiles.shape
+    mh, mw = h // 2, w // 2
+    dev = tiles.device
+    rows = torch.arange(2 * h, device=dev) + mh      # canvas coordinates
+    cols = torch.arange(2 * w, device=dev) + mw
+    bidx = torch.arange(b, device=dev)[:, None, None]
+    out = torch.full((b, 2 * h, 2 * w, c), FILL, dtype=tiles.dtype,
+                     device=dev)
+    for k in range(nk):
+        ty = rows[None] - oy[:, k, None].to(torch.int64)    # [B,2H]
+        tx = cols[None] - ox[:, k, None].to(torch.int64)    # [B,2W]
+        inside = (((ty >= 0) & (ty < h))[:, :, None]
+                  & ((tx >= 0) & (tx < w))[:, None, :])
+        px = tiles[:, k][bidx, ty.clamp(0, h - 1)[:, :, None],
+                         tx.clamp(0, w - 1)[:, None, :]]
+        out = torch.where(inside[..., None], px, out)
+    return out
+
+
+def _mosaic_general(draws: AugmentDraws, images: torch.Tensor,
+                    labels4: torch.Tensor, idx4: torch.Tensor):
+    """The JAX `_mosaic_one` over the batch, for any affine: images
+    [B,H,W,3] in the pixel dtype, labels4 [B,4,M,5], idx4 [B,3] partners.
+    Each output pixel's window coordinates are the inverse affine of its
+    own (outside the 2H x 2W window: fill). Returns (img [B,3,H,W]
+    channel-major, cand [B,4M,5], valid [B,4M])."""
+    b, h, w, _ = images.shape
+    mh, mw = h // 2, w // 2
+    cx = draws.center[:, 0] + mw
+    cy = draws.center[:, 1] + mh
+    ox = torch.stack([cx - w, cx, cx - w, cx], dim=1).to(torch.int32)
+    oy = torch.stack([cy - h, cy - h, cy, cy], dim=1).to(torch.int32)
+    tiles = torch.cat([images[:, None], images[idx4]], dim=1)
+    window = _paste_window(tiles, ox, oy)
+    M = _affine_matrix(draws.affine, h, w, mh, mw)
+    ii, jj = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=M.device),
+        torch.arange(w, dtype=torch.float32, device=M.device), indexing="ij")
+    pts = torch.stack([jj, ii], dim=-1).expand(b, h, w, 2)
+    src = _apply_affine_to_points(torch.linalg.inv(M), pts)
+
+    def crop(coord, lo, hi):   # the 2H x 2W window, in window coordinates
+        return torch.where((coord >= lo) & (coord < hi), coord,
+                           torch.full_like(coord, -1e9)) - lo
+    out = bilinear_sample(window, crop(src[..., 0], mw, mw + 2 * w),
+                          crop(src[..., 1], mh, mh + 2 * h))
+    cand, valid = _mosaic_labels(M, labels4, ox, oy, h, w, mh, mw)
+    return out.permute(0, 3, 1, 2), cand, valid
+
+
+def separable_sample(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                     fill: float = FILL) -> torch.Tensor:
+    """Separable sampling: img [B,H,W,C] at the grid ys[b,i] x xs[b,j]
+    (out of bounds -> fill), as the JAX package's `separable_bilinear`
+    computes it: the row lerp in img's dtype, then the column lerp, its
+    2-sparse contraction, summed in fp32 and rounded once."""
+    b, h, w, c = img.shape
+    vy = (ys >= 0) & (ys <= h - 1)
+    vx = (xs >= 0) & (xs <= w - 1)
+    ys = ys.clamp(0.0, h - 1)
+    xs = xs.clamp(0.0, w - 1)
+    y0 = torch.floor(ys).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fy = (ys - y0).to(img.dtype)[..., None, None]
+    bidx = torch.arange(b, device=img.device)[:, None]
+    rows = img[bidx, y0] * (1 - fy) + img[bidx, y1] * fy   # [B,H',W,C]
+    x0 = torch.floor(xs).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    fx = (xs - x0).to(img.dtype)
+
+    def col(idx, weight):
+        idx = idx[:, None, :, None].expand(-1, rows.shape[1], -1, c)
+        return torch.gather(rows, 2, idx).float() * weight.float()[:, None,
+                                                                   :, None]
+    out = (col(x0, 1 - fx) + col(x1, fx)).to(img.dtype)
+    mask = vy[:, :, None] & vx[:, None, :]
+    return torch.where(mask[..., None], out,
+                       torch.full((), fill, dtype=img.dtype,
+                                  device=img.device))
+
+
+# -------------------------------------------------------------- multiscale
+
+def multiscale_resize(images: torch.Tensor, labels: torch.Tensor,
+                      out_hw: tuple[int, int]):
+    """Resize an augmented NHWC batch [B,H,W,C] to a multi-scale bucket
+    `out_hw`: separable bilinear (`separable_sample`) at half-pixel
+    centres, the taps clamped to the image (no fill); the labels' x and w
+    scaled by ow/W, y and h by oh/H. The same size returns the inputs."""
+    b, h, w, _ = images.shape
+    oh, ow = out_hw
+    if (oh, ow) == (h, w):
+        return images, labels
+    dev = images.device
+    xs = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) \
+        * (w / ow) - 0.5
+    ys = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) \
+        * (h / oh) - 0.5
+    out = separable_sample(images, xs.clamp(0.0, w - 1).expand(b, ow),
+                           ys.clamp(0.0, h - 1).expand(b, oh))
+    scale = torch.tensor([1.0, ow / w, oh / h, ow / w, oh / h],
+                         dtype=labels.dtype, device=labels.device)
+    return out, labels * scale
+
+
 # ------------------------------------------------------------- the batch
 
 def _augment_batch(draws: AugmentDraws, img: torch.Tensor,
@@ -405,7 +549,9 @@ def device_augment(draws: AugmentDraws, images: torch.Tensor,
     the stem's [B,H/2,W/2,12] layout in the pixel dtype, for a model under
     `layers.blocks.stem_input_s2d()`. `enable` (bool or 0/1 tensor) gates
     mosaic and mixup (the no-aug epochs keep HSV and flip). Runs on the
-    images' device; two `mosaic_warp` calls (mosaic, mixup partner)."""
+    images' device; two `mosaic_warp` calls (mosaic, mixup partner), or,
+    with a rotation, shear or perspective, none: the general route samples
+    both with plain torch gathers."""
     check_config(cfg)
     b, h, w = images.shape[:3]
     dev = images.device
@@ -420,16 +566,25 @@ def device_augment(draws: AugmentDraws, images: torch.Tensor,
     mosaic = mixup = None
     if cfg.mosaic_prob > 0:
         labels4 = torch.cat([labels[:, None], labels[idx4]], dim=1)
-        oxw, oyw, xs_raw, ys_raw, mo_cand, mo_valid = _mosaic_geometry(
-            draws, labels4, h, w)
-        tidx = torch.cat([torch.arange(b, device=dev)[:, None], idx4], dim=1)
-        mosaic = (mosaic_sample_idx(pool, tidx, oxw, oyw, xs_raw, ys_raw),
-                  mo_cand, mo_valid)
+        if cfg.separable:
+            oxw, oyw, xs_raw, ys_raw, mo_cand, mo_valid = _mosaic_geometry(
+                draws, labels4, h, w)
+            tidx = torch.cat([torch.arange(b, device=dev)[:, None], idx4],
+                             dim=1)
+            mosaic = (mosaic_sample_idx(pool, tidx, oxw, oyw, xs_raw,
+                                        ys_raw), mo_cand, mo_valid)
+        else:
+            mosaic = _mosaic_general(draws, images, labels4, idx4)
         if cfg.mixup_prob > 0:
             mxs, mys, mix_cand, mix_v = _mixup_geometry(
                 draws, labels[draws.mix_idx], h, w)
-            mixup = (warp_sample_idx(pool, draws.mix_idx, mxs, mys, fill=0.0),
-                     mix_cand, mix_v)
+            if cfg.separable:
+                mix_t = warp_sample_idx(pool, draws.mix_idx, mxs, mys,
+                                        fill=0.0)
+            else:
+                mix_t = separable_sample(images[draws.mix_idx], mxs, mys,
+                                         fill=0.0).permute(0, 3, 1, 2)
+            mixup = (mix_t, mix_cand, mix_v)
 
     out, out_labels = _augment_batch(draws, pool, labels, cfg, enable,
                                      mosaic, mixup)

@@ -12,19 +12,28 @@ key is ambient global state; here it is passed to each module at build time.
 
 BatchNorm uses eps=1e-3 and running-average momentum 0.03 (flax 0.97), and
 in train mode keeps the *biased* batch variance in `running_var`, as flax
-does (`BatchNorm2d` below).
+does (`BatchNorm2d` below). `norm: ln` is flax's LayerNorm over the channels
+(`LayerNorm2d`).
+
+Rematerialisation (the model yaml's top-level `remat: true`): the CSP stage
+layers the JAX package wraps in `nn.remat` run under `maybe_checkpoint`,
+which recomputes their interiors in the backward pass instead of keeping
+them; parameters and state_dict keys are unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum = 1 - flax momentum (0.97)
+LN_EPS = 1e-6       # flax nn.LayerNorm's default
 
 _DTYPES = {None: None, "float32": None, "fp32": None,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -62,10 +71,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     `running_var` takes that same biased variance, where torch would store
     the unbiased one (a factor n/(n-1)). `running <- (1-momentum)*running +
     momentum*batch`; the statistics are fp32 whatever the compute dtype.
-    Eval mode and the `state_dict` keys are the base class's."""
+    Eval mode and the `state_dict` keys are the base class's. With
+    `update_stats` false (the recompute of a checkpointed layer), train
+    mode normalises by the batch and leaves the running statistics alone."""
 
     def __init__(self, num_features: int, eps: float, momentum: float):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
         # scratch for the batch's own statistics; not part of the state_dict
         self.register_buffer("batch_mean", torch.zeros(num_features),
                              persistent=False)
@@ -79,6 +91,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         # the batch's mean and unbiased variance
         y = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight,
                          self.bias, True, 1.0, self.eps)
+        if not self.update_stats:
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_mean.lerp_(self.batch_mean, self.momentum)
@@ -89,11 +103,36 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def _norm(norm: str | None, num_features: int) -> nn.Module | None:
+class LayerNorm2d(nn.Module):
+    """flax `nn.LayerNorm` over the channels of an NCHW tensor: eps 1e-6,
+    `weight` (flax `scale`) and `bias` [C]; the statistics in fp32 as
+    mean(x²) - mean(x)² (flax's fast variance, clamped at 0), the result
+    in the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None, None]
+        return ((xf - mean) * mul + self.bias[:, None, None]).to(x.dtype)
+
+
+def _norms(norm: str | None, num_features: int
+           ) -> tuple[nn.Module | None, nn.Module | None]:
+    """(bn, ln) of a block: the module under its flax name, the other None."""
     if norm == "bn":
-        return BatchNorm2d(num_features, BN_EPS, BN_MOMENTUM)
+        return BatchNorm2d(num_features, BN_EPS, BN_MOMENTUM), None
+    if norm == "ln":
+        return None, LayerNorm2d(num_features)
     if norm in (None, "none"):
-        return None
+        return None, None
     raise ValueError(f"Unsupported norm: {norm}")
 
 
@@ -118,15 +157,20 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
                               (ksize - 1) // 2, groups=groups, bias=False)
-        self.bn = _norm(norm, out_channels)
+        self.bn, self.ln = _norms(norm, out_channels)
         self.act = get_activation(act)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _conv(self.conv, x, self.dtype)
+    def norm_act(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's normalization and activation of a conv output."""
         if self.bn is not None:
             x = self.bn(x)
+        elif self.ln is not None:
+            x = self.ln(x)
         return self.act(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm_act(_conv(self.conv, x, self.dtype))
 
 
 class DWConvBlock(nn.Module):
@@ -229,10 +273,7 @@ class Focus(nn.Module):
             w6 = focus_kernel_6x6(blk.conv.weight)
             if blk.dtype is not None:
                 x, w6 = x.to(blk.dtype), w6.to(blk.dtype)
-            y = F.conv2d(x, w6, stride=2, padding=2)
-            if blk.bn is not None:
-                y = blk.bn(y)
-            return blk.act(y)
+            return blk.norm_act(F.conv2d(x, w6, stride=2, padding=2))
         return self.conv(space_to_depth(x))
 
 
@@ -284,6 +325,39 @@ class CSPLayer(nn.Module):
         for i in range(self.num_bottle):
             x1 = getattr(self, f"m{i}")(x1)
         return self.conv3(torch.cat([x1, x2], dim=1))
+
+
+class _FrozenStats:
+    """Context: the BatchNorms of `layer` leave their running statistics
+    alone (the recompute of a checkpointed layer, whose forward has already
+    updated them once, as flax's `nn.remat` updates them once)."""
+
+    def __init__(self, layer: nn.Module):
+        self.bns = [m for m in layer.modules() if isinstance(m, BatchNorm2d)]
+
+    def __enter__(self):
+        for m in self.bns:
+            m.update_stats = False
+
+    def __exit__(self, *exc):
+        for m in self.bns:
+            m.update_stats = True
+        return False
+
+
+def maybe_checkpoint(layer: nn.Module, x: torch.Tensor, remat: bool
+                     ) -> torch.Tensor:
+    """`layer(x)`, under `torch.utils.checkpoint` when `remat` and the layer
+    trains with autograd on: the backward pass recomputes the layer's
+    interior instead of keeping it (the JAX package's `maybe_remat`). The
+    recompute leaves the BatchNorm running statistics alone; the layers
+    wrapped draw no random numbers, so no RNG state is kept."""
+    if not (remat and layer.training and torch.is_grad_enabled()):
+        return layer(x)
+    return checkpoint(layer, x, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _FrozenStats(layer)))
 
 
 def max_pool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:

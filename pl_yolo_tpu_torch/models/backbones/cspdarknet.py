@@ -4,6 +4,11 @@
 Focus stem + 4 stages of (stride-2 3x3 conv -> CSPLayer); SPP in stage4
 before a non-shortcut CSPLayer. Returns the feature maps named in `outputs`
 (default stage2/3/4 -> strides 8/16/32). NCHW.
+
+`drop_block_rate` > 0 puts a DropBlock after each stage's CSP layer (train
+mode only; the train step hands it its generator through
+`layers.drops.dropout_generator`). With `remat` true the CSP layers run
+under `layers.blocks.maybe_checkpoint`.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import torch
 from torch import nn
 
 from ...layers.blocks import (ConvBlock, CSPLayer, DWConvBlock, Focus,
-                              SPPBottleneck)
+                              SPPBottleneck, maybe_checkpoint)
+from ...layers.drops import DropBlock2d
 
 
 class CSPDarkNet(nn.Module):
@@ -27,13 +33,13 @@ class CSPDarkNet(nn.Module):
                  outputs: Sequence[str] = ("stage2", "stage3", "stage4"),
                  depthwise: bool = False, norm: str = "bn",
                  act: str = "silu", drop_block_rate: float = 0.0,
+                 drop_block_size: int = 7,
                  dtype: torch.dtype | None = None):
         super().__init__()
         kw = dict(norm=norm, act=act, dtype=dtype)
         down = DWConvBlock if depthwise else ConvBlock
         self.outputs = tuple(outputs)
-        # DropBlock is a train-mode regularizer (identity in eval); its
-        # train form is not ported yet.
+        self.remat = False   # build_model sets it from the yaml's `remat`
         self.drop_block_rate = float(drop_block_rate)
         self.stem = Focus(3, channels[0], ksize=3, **kw)
         widths = {"stem": channels[0]}
@@ -46,20 +52,22 @@ class CSPDarkNet(nn.Module):
             self.add_module(f"stage{i + 1}_csp", CSPLayer(
                 ch, ch, num_bottle=depths[i], shortcut=(i != 3),
                 depthwise=depthwise, **kw))
+            if self.drop_block_rate > 0.0:
+                self.add_module(f"stage{i + 1}_dropblock", DropBlock2d(
+                    self.drop_block_rate, drop_block_size))
             widths[f"stage{i + 1}"] = ch
         self.out_channels = [widths[k] for k in self.outputs]
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        if self.training and self.drop_block_rate > 0.0:
-            raise NotImplementedError(
-                "CSPDarkNet drop_block in train mode is not ported yet "
-                "(ROADMAP queue A, item 10: layers/drops.py)")
         x = self.stem(x)
         feats = {"stem": x}
         for i in range(4):
             x = getattr(self, f"stage{i + 1}_down")(x)
             if i == 3:
                 x = self.stage4_spp(x)
-            x = getattr(self, f"stage{i + 1}_csp")(x)
+            x = maybe_checkpoint(getattr(self, f"stage{i + 1}_csp"), x,
+                                 self.remat)
+            if self.drop_block_rate > 0.0:
+                x = getattr(self, f"stage{i + 1}_dropblock")(x)
             feats[f"stage{i + 1}"] = x
         return [feats[k] for k in self.outputs]

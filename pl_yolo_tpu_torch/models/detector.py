@@ -68,6 +68,7 @@ def _cspdarknet(cfg: dict, dtype) -> nn.Module:
         norm=cfg.get("norm", "bn"),
         act=cfg.get("act", "silu"),
         drop_block_rate=float(db.get("rate", 0.0)),
+        drop_block_size=int(db.get("size", 7)),
         dtype=dtype,
     )
 
@@ -270,7 +271,10 @@ def build_model(cfg: dict, num_classes: int, device=None,
     the CUDA card), in eval mode, with conv kernels (and the implicit
     head's priors) drawn from a `torch.Generator` seeded with `seed`.
     Top-level `dtype: bfloat16` runs conv/BN in bf16 with fp32 params;
-    decode stays fp32."""
+    decode stays fp32. Top-level `remat: true` makes the backbone and neck
+    that support it (CSPDarkNet, CSPPAFPN) recompute their CSP layers in
+    the backward pass (`layers.blocks.maybe_checkpoint`); the parameters
+    are the same either way."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg.get("dtype", None) or None)
     b_cfg, n_cfg, h_cfg, l_cfg = cfg["backbone"], cfg["neck"], cfg["head"], cfg["loss"]
@@ -290,6 +294,10 @@ def build_model(cfg: dict, num_classes: int, device=None,
         neck = NECKS[n_cfg["name"]](n_cfg, backbone.out_channels, dtype)
         head = HEADS[h_cfg["name"]](h_cfg, num_classes, neck.out_channels,
                                     dtype)
+    remat = bool(cfg.get("remat", False))
+    for part in (backbone, neck):
+        if hasattr(part, "remat"):
+            part.remat = remat
     module = OneStageDetector(backbone, neck, head)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():

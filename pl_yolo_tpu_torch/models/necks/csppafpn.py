@@ -2,7 +2,8 @@
 
 Top-down path (1x1 shrink -> nearest 2x upsample -> concat -> CSP), then
 bottom-up path (stride-2 3x3 conv -> concat -> CSP). 3 inputs, 3 outputs.
-NCHW.
+NCHW. With `remat` true the four CSP layers run under
+`layers.blocks.maybe_checkpoint`.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from torch import nn
 
 from ...layers.blocks import (ConvBlock, CSPLayer, DWConvBlock,
-                              upsample_nearest_2x)
+                              maybe_checkpoint, upsample_nearest_2x)
 
 
 class CSPPAFPN(nn.Module):
@@ -43,16 +44,24 @@ class CSPPAFPN(nn.Module):
         self.downsample_conv2 = down(c4, c4, 3, stride=2, **kw)
         self.n4_n5 = CSPLayer(c4 + c4, c5, **csp_kw)
         self.out_channels = [c3, c4, c5]
+        self.remat = False   # build_model sets it from the yaml's `remat`
+
+    def _csp(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return maybe_checkpoint(layer, x, self.remat)
 
     def forward(self, inputs: Sequence[torch.Tensor]):
         c3, c4, c5 = inputs
         # top-down
         p5_expand = self.shrink_conv1(c5)
-        p4 = self.p5_p4(torch.cat([upsample_nearest_2x(p5_expand), c4], 1))
+        p4 = self._csp(self.p5_p4,
+                       torch.cat([upsample_nearest_2x(p5_expand), c4], 1))
         p4_expand = self.shrink_conv2(p4)
-        p3 = self.p4_p3(torch.cat([upsample_nearest_2x(p4_expand), c3], 1))
+        p3 = self._csp(self.p4_p3,
+                       torch.cat([upsample_nearest_2x(p4_expand), c3], 1))
         # bottom-up
         n3 = p3
-        n4 = self.n3_n4(torch.cat([self.downsample_conv1(n3), p4_expand], 1))
-        n5 = self.n4_n5(torch.cat([self.downsample_conv2(n4), p5_expand], 1))
+        n4 = self._csp(self.n3_n4,
+                       torch.cat([self.downsample_conv1(n3), p4_expand], 1))
+        n5 = self._csp(self.n4_n5,
+                       torch.cat([self.downsample_conv2(n4), p5_expand], 1))
         return (n3, n4, n5)

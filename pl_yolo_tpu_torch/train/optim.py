@@ -9,10 +9,14 @@ yaml's `optimizer` section:
         weight_decay: 0.0005   # conv/linear weights only (SGD, AdamW)
         warmup: 0.1            # share of total_steps
         clip_grad_norm: 10.0   # global-norm clip before the update
+        accumulate_steps: 4    # optax.MultiSteps: average the gradients of
+                               # N micro-steps, one update every N-th
 
 The returned optimizer schedules itself: a step pre-hook clips the gradients
 and sets every group's learning rate to `schedule(n)` for update n, counting
-from 0 (`optimizer.updates`), as optax counts.
+from 0 (`optimizer.updates`), as optax counts. Under `accumulate_steps: N`
+each `optimizer.step()` is a micro-step (`accumulate_` below); the schedule
+then spans `total_steps // N` updates.
 """
 
 from __future__ import annotations
@@ -57,11 +61,8 @@ def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int
     name = opt_cfg.get("name", "SGD").lower()
     lr = float(opt_cfg.get("learning_rate", 0.01))
     accum = int(opt_cfg.get("accumulate_steps", 1))
-    if accum > 1:
-        raise NotImplementedError(
-            "optimizer: {accumulate_steps: N} is not ported yet (ROADMAP "
-            "queue A, item 8: accumulate_steps)")
-    total_steps = max(total_steps, 1)
+    # total_steps counts micro-steps; the schedule counts updates
+    total_steps = max(total_steps // accum, 1)
     schedule = cosine_warmup_schedule(
         base_lr=lr,
         warmup_steps=float(opt_cfg.get("warmup", 0.1)) * total_steps,
@@ -96,4 +97,44 @@ def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int
         opt.updates += 1
 
     optimizer.register_step_pre_hook(before_step)
+    if accum > 1:
+        accumulate_(optimizer, accum)
     return optimizer, schedule
+
+
+def accumulate_(optimizer: torch.optim.Optimizer, every: int) -> None:
+    """Make `optimizer.step()` a micro-step of optax.MultiSteps(every_k=
+    `every`): it folds the gradients into their running mean (Welford's
+    update, acc += (g - acc) / (k + 1), as optax computes it, in
+    `state[p]["grad_acc"]`, so a checkpoint carries it) and, on every
+    `every`-th call, runs the inner step (clip, decay, momentum, schedule)
+    on the mean and zeroes it; the other calls leave the parameters alone.
+    `optimizer.mini_step` counts the micro-steps since the last update."""
+    inner = optimizer.step
+    optimizer.accumulate_steps = every
+    optimizer.mini_step = 0
+
+    @torch.no_grad()
+    def step(closure=None):
+        params = [p for g in optimizer.param_groups for p in g["params"]
+                  if p.grad is not None]
+        accs = []
+        for p in params:
+            st = optimizer.state[p]
+            if "grad_acc" not in st:
+                st["grad_acc"] = torch.zeros_like(p)
+            accs.append(st["grad_acc"])
+        k = optimizer.mini_step
+        delta = torch._foreach_sub([p.grad for p in params], accs)
+        torch._foreach_div_(delta, float(k + 1))
+        torch._foreach_add_(accs, delta)
+        if k + 1 < every:
+            optimizer.mini_step = k + 1
+            return None
+        optimizer.mini_step = 0
+        for p, a in zip(params, accs):
+            p.grad.copy_(a)
+        torch._foreach_zero_(accs)
+        return inner(closure)
+
+    optimizer.step = step

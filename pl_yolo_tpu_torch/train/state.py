@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..layers.drops import dropout_generator
 from .ema import ema_update
 
 
@@ -74,19 +75,24 @@ def make_train_step(
     The returned `step(state, images, labels, generator=None,
     aug_enable=None, use_l1=None) -> losses` does, in this order: the
     optional augmentation, the train-mode forward (BatchNorm statistics
-    move), the loss, the backward pass, the optimizer update, step += 1, and
-    the EMA of params and BN stats at the new step count. `images` are
-    [B,H,W,3] in 0-255, float or uint8, or whatever `augment_fn` hands to
-    `apply_fn` (`data.augment.make_augment_fn(cfg, out_s2d=True)` gives the
-    stem's space_to_depth layout, for an `apply_fn` that calls the module
-    under `layers.blocks.stem_input_s2d()`). `aug_enable` and `use_l1` are the
+    move; DropBlock / DropPath layers draw from `generator` too), the loss,
+    the backward pass, the optimizer update, step += 1, and the EMA of
+    params and BN stats at the new step count. Under `optimizer:
+    {accumulate_steps: N}` (`train.optim.accumulate_`) a step is a
+    micro-step, as under optax.MultiSteps: the parameters change on every
+    N-th only, while the BN statistics, `step` and the EMA move on each.
+    `images` are [B,H,W,3] in 0-255, float or uint8, or whatever
+    `augment_fn` hands to `apply_fn` (`data.augment.make_augment_fn(cfg,
+    out_s2d=True)` gives the stem's space_to_depth layout, for an
+    `apply_fn` that calls the module under
+    `layers.blocks.stem_input_s2d()`). `aug_enable` and `use_l1` are the
     flags of the epoch-gated no-aug schedule (bools or 0/1 tensors), handed
     to `augment_fn`/`loss_fn` only when those accept them. `generator` seeds
-    the augmentation. With `sanitize`, the losses also carry `grad_norm`
-    (global) and `nonfinite_grads` (element count). The returned losses are
-    detached tensors on the device; the step forces no host sync (the
-    mosaic warp checks its tile indices on the card, with a device-side
-    assert).
+    the augmentation and the dropout layers. With `sanitize`, the losses
+    also carry `grad_norm` (global) and `nonfinite_grads` (element count).
+    The returned losses are detached tensors on the device; the step forces
+    no host sync (the mosaic warp checks its tile indices on the card, with
+    a device-side assert).
 
     `apply_fn` is the JAX step's, with the module in place of the
     variables (the state holds the module, in train mode). `donate`,
@@ -111,8 +117,9 @@ def make_train_step(
             images = images.to(torch.float32)
 
         module.train()
-        outputs = module(images) if apply_fn is None else apply_fn(module,
-                                                                   images)
+        with dropout_generator(module, generator):
+            outputs = (module(images) if apply_fn is None
+                       else apply_fn(module, images))
         if loss_takes_l1 and use_l1 is not None:
             losses = loss_fn(outputs, labels, use_l1=use_l1)
         else:

@@ -5,7 +5,7 @@
     device, forward/backward, optimizer, EMA), loss/LR logging, validation
     every `check_val_every_n_epoch` epochs and at the last, top-2
     checkpoints monitored on mAP, resume, and a preemption checkpoint on
-    SIGTERM.
+    SIGTERM; multi-scale buckets (`transform: {multiscale_sizes}`).
   * validate(): eval-mode forward with the EMA weights, decode and NMS on
     the device, COCO evaluation on the host, and the average inference and
     NMS times.
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.augment import AugmentConfig, check_config
+from ..data.augment import AugmentConfig, check_config, multiscale_resize
 from ..data.datamodule import DataModule, build_data
 from ..data.loader import device_prefetch
 from ..evaluators.coco_eval import coco_evaluator
@@ -56,11 +56,7 @@ def check_ported(model_cfg: dict, data_cfg: dict) -> None:
             "parallelism or ZeRO, which are not ported yet (ROADMAP queue "
             "A, item 12); the port trains on one device")
     t_cfg = data_cfg.get("transform", {}) or {}
-    if t_cfg.get("multiscale_sizes"):
-        raise NotImplementedError(
-            "transform: {multiscale_sizes} (multi-scale training) is not "
-            "ported yet (ROADMAP queue A, item 11)")
-    check_config(AugmentConfig.from_dict(t_cfg))  # degrees, shear, ...
+    check_config(AugmentConfig.from_dict(t_cfg))  # use_pallas
 
 
 def finite_detections(json_list: list, before: str) -> list:
@@ -146,22 +142,50 @@ class Trainer:
         return TrainState.create(self.model.module, optimizer,
                                  use_ema=self.use_ema)
 
-    def make_step(self):
+    def make_step(self, out_hw: tuple[int, int] | None = None):
         """The train step `fit` runs, `step(state, images, labels,
-        generator=, aug_enable=, use_l1=)`: a Focus-stem backbone takes the
-        augmentation's space-to-depth output directly (opt out with the
-        model yaml's `stem_s2d: false`), others the NHWC images."""
-        stem_s2d = (getattr(type(self.model.module.backbone), "STEM_S2D",
-                            False)
+        generator=, aug_enable=, use_l1=)`. At the base size (`out_hw`
+        None) a Focus-stem backbone takes the augmentation's space-to-depth
+        output directly (opt out with the model yaml's `stem_s2d: false`),
+        others the NHWC images; a multi-scale bucket `out_hw` takes the
+        NHWC images resized on the device (`multiscale_resize`)."""
+        stem_s2d = (out_hw is None
+                    and getattr(type(self.model.module.backbone), "STEM_S2D",
+                                False)
                     and bool(self.model_cfg.get("stem_s2d", True)))
 
         def s2d_apply(module, images):
             with stem_input_s2d():
                 return module(images)
+        augment = self.datamodule.make_augment_fn(out_s2d=stem_s2d)
+        if out_hw is not None:
+            base_augment = augment
+
+            def augment(generator, images, labels, enable=True):
+                return multiscale_resize(
+                    *base_augment(generator, images, labels, enable=enable),
+                    out_hw)
         return make_train_step(
             self.model.loss.train_loss, use_ema=self.use_ema,
-            augment_fn=self.datamodule.make_augment_fn(out_s2d=stem_s2d),
-            sanitize=self.sanitize, apply_fn=s2d_apply if stem_s2d else None)
+            augment_fn=augment, sanitize=self.sanitize,
+            apply_fn=s2d_apply if stem_s2d else None)
+
+    def make_steps(self) -> tuple[list, int]:
+        """(the step of each multi-scale bucket, the switch interval):
+        bucket 0 is the base size, then each `transform: {multiscale_sizes}`
+        entry that differs from it, switched every `multiscale_interval`
+        steps (default 10). Without buckets: ([the base step], 0)."""
+        t_cfg = self.data_cfg.get("transform", {}) or {}
+        base_hw = tuple(self.datamodule.train_size)
+        sizes = [tuple(s) for s in (t_cfg.get("multiscale_sizes") or [])]
+        steps = [self.make_step()]
+        if not sizes:
+            return steps, 0
+        steps += [self.make_step(s) for s in sizes if s != base_hw]
+        interval = int(t_cfg.get("multiscale_interval", 10))
+        print(f"[trainer] multi-scale buckets {[base_hw] + sizes}, switch "
+              f"every {interval} steps")
+        return steps, interval
 
     def epoch_flags(self, epoch: int) -> dict:
         """The epoch-gated YOLOX recipe (upstream exp: no_aug_epochs=15):
@@ -227,7 +251,14 @@ class Trainer:
             {"model": self.model_cfg, "data": self.data_cfg,
              "params": n_params, "flops": flops})
 
-        step_fn = self.make_step()
+        # multi-scale buckets: drawn every `interval` steps from a seeded
+        # host generator (the JAX trainer's sequence); the no-aug epochs
+        # train at the base size
+        step_fns, interval = self.make_steps()
+        bucket_rng = np.random.default_rng(self.seed + 7)
+        step_fn = step_fns[0]
+        accum = int(self.model_cfg.get("optimizer", {})
+                    .get("accumulate_steps", 1))
         # one generator on the device for every augmentation draw
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.seed + 1)
@@ -246,18 +277,26 @@ class Trainer:
                 print(f"[trainer] epoch {epoch}: mosaic/mixup "
                       f"{'on' if flags['aug_enable'] else 'OFF'}, "
                       f"L1 {'on' if flags['use_l1'] else 'off'}")
+            no_aug = bool(flags) and not flags["aug_enable"]
             n_steps = steps_per_epoch * (epoch + 1) - step
             for _ in range(n_steps):
                 tw = time.perf_counter()
                 batch = next(batches)
                 waited += time.perf_counter() - tw
+                if interval and no_aug:
+                    step_fn = step_fns[0]
+                elif interval and step % interval == 0:
+                    step_fn = step_fns[int(bucket_rng.integers(
+                        len(step_fns)))]
                 losses = step_fn(self.state, batch["images"],
                                  batch["labels"], generator=generator,
                                  **flags)
                 step += 1
                 if step % self.log_every == 0:
                     metrics = {k: float(v) for k, v in losses.items()}
-                    metrics["lr"] = float(self._schedule(step))
+                    # the schedule counts updates, which lag micro-steps
+                    # under accumulate_steps
+                    metrics["lr"] = float(self._schedule(step // accum))
                     self.logger.log_metrics(metrics, step)
                     if not np.isfinite(metrics["loss"]):
                         # fail loudly with a debug checkpoint instead of
@@ -413,7 +452,12 @@ class Trainer:
         if resume:
             s.step = int(restored["step"])
             s.optimizer.load_state_dict(restored["optimizer"])
-            s.optimizer.updates = s.step  # the LR schedule's position
+            # the LR schedule's position, in updates, and the micro-steps
+            # since the last one (`accumulate_steps`)
+            every = getattr(s.optimizer, "accumulate_steps", 1)
+            s.optimizer.updates = s.step // every
+            if every > 1:
+                s.optimizer.mini_step = s.step % every
         if resume and self._steps_per_epoch:
             return s.step // self._steps_per_epoch
         return 0

@@ -296,10 +296,12 @@ def test_sampled_draws_lie_in_their_ranges():
     assert all(torch.equal(a, b) for a, b in zip(d, again))
 
 
+# err None: ported since (the general-gather route, test_torch_options),
+# so the option builds an augment fn and augments a batch
 @pytest.mark.parametrize("over,err", [
-    (dict(degrees=5.0), NotImplementedError),
-    (dict(shear=2.0), NotImplementedError),
-    (dict(perspective=1e-4), NotImplementedError),
+    (dict(degrees=5.0), None),
+    (dict(shear=2.0), None),
+    (dict(perspective=1e-4), None),
     (dict(use_pallas="off"), ValueError),
     (dict(use_pallas="interpret"), ValueError),
 ])
@@ -307,6 +309,15 @@ def test_unported_config_options_raise(over, err):
     cfg = ta.AugmentConfig(**over)
     images, labels = _batch()
     draws = ta.sample_draws(torch.Generator().manual_seed(0), B, (H, W), cfg)
+    if err is None:
+        assert not cfg.separable
+        ta.make_augment_fn(cfg)
+        img, lab = ta.device_augment(draws, torch.from_numpy(images),
+                                     torch.from_numpy(labels), cfg)
+        assert img.shape == (B, H, W, 3) and bool(torch.isfinite(img).all())
+        # 4 mosaic tiles' and the mixup partner's rows, compacted
+        assert lab.shape == (B, min(cfg.max_labels, 5 * M), 5)
+        return
     with pytest.raises(err):
         ta.make_augment_fn(cfg)
     with pytest.raises(err):

@@ -206,7 +206,7 @@ def test_device_prefetch_keeps_order_and_dtypes(threaded):
 # ----------------------------------------------------------- data module, cli
 
 DATA_YAMLS = ("coco2017", "pascal2012", "shapes_demo", "shapes_hard", "gc10",
-              "neu", "al")
+              "neu", "al", "coco2017_multiscale")
 
 
 def test_data_configs_are_copied():

@@ -19,6 +19,7 @@ import torch
 from pl_yolo_tpu.models.detector import build_model as jax_build_model
 from pl_yolo_tpu.ops import nms as jnms
 from pl_yolo_tpu_torch.bridge import load_variables
+from pl_yolo_tpu_torch.layers.drops import DropBlock2d, dropout_generator
 from pl_yolo_tpu_torch.models.detector import build_model
 from pl_yolo_tpu_torch.ops import nms as tnms
 from pl_yolo_tpu_torch.utils.config import load_config, validate_model_config
@@ -151,10 +152,24 @@ def test_build_is_seeded_and_defaults_to_cuda():
 
 
 def test_drop_block_train_mode_not_ported_yet():
+    """DropBlock (ported since, `layers/drops.py`): identity in eval mode,
+    and in train mode a DropBlock after each backbone stage that draws
+    from the generator it is given."""
     cfg = _tiny_cfg()
     cfg["backbone"]["drop_block"] = {"rate": 0.1, "size": 3}
     module = build_model(cfg, NUM_CLASSES, device="cpu").module
+    plain = build_model(_tiny_cfg(), NUM_CLASSES, device="cpu").module
+    x = torch.rand(1, SIZE, SIZE, 3) * 255
     with torch.no_grad():
-        module(torch.zeros(1, SIZE, SIZE, 3))  # eval: identity
-        with pytest.raises(NotImplementedError, match="drop_block"):
-            module.train()(torch.zeros(1, SIZE, SIZE, 3))
+        for got, want in zip(module(x), plain(x)):  # eval: identity
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        blocks = [m for m in module.backbone.modules()
+                  if isinstance(m, DropBlock2d)]
+        assert len(blocks) == 4 and blocks[0].block_size == 3
+        outs = []
+        for seed in (0, 0, 1):
+            with dropout_generator(module, torch.Generator().manual_seed(seed)):
+                outs.append(module.train()(x))
+        assert all(torch.isfinite(o).all() for o in outs[0])
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+        assert not all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))

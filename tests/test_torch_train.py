@@ -252,9 +252,12 @@ def test_momentum_round_trip_through_the_bridge():
 
 
 def test_unported_optimizer_options_raise():
+    """An unknown optimizer raises; `accumulate_steps` is ported
+    (test_torch_options holds it to optax.MultiSteps)."""
     net = _SmallNet()
-    with pytest.raises(NotImplementedError, match="accumulate_steps"):
-        build_optimizer(net, dict(name="SGD", accumulate_steps=4), 10)
+    optimizer, _ = build_optimizer(net, dict(name="SGD", accumulate_steps=4),
+                                   10)
+    assert optimizer.accumulate_steps == 4 and optimizer.mini_step == 0
     with pytest.raises(ValueError, match="Unsupported optimizer"):
         build_optimizer(net, dict(name="LAMB"), 10)
 
@@ -488,11 +491,12 @@ def test_config_copy_equals_the_jax_packages(path):
 
 
 def test_all_yolox_configs_are_copied():
-    """The model YAMLs the port builds: the YOLOX family and the anchor
-    families (YOLOv7, YOLOv5-s)."""
+    """The model YAMLs the port builds: the YOLOX family (with DropBlock)
+    and the anchor families (YOLOv7, YOLOv5-s)."""
     names = {p.name for p in (CONFIG_DIR / "model").glob("*.yaml")}
     assert names == (
-        {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x")}
+        {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x",
+                                     "s_dropblock")}
         | {f"{n}.yaml" for n in ("yolov7", "yolov7_tiny", "al_yolov7",
                                  "al_yolov7_tiny", "gc10_yolov7",
                                  "neu_yolov7", "neu_yolov7_tiny",
