@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's YOLOX-s serving and training paths, and its anchor
-families (YOLOv7, YOLOv5-s, YOLOv3), on one CUDA card.
+"""Drive the PyTorch port's YOLOX-s serving and training paths, its anchor
+families (YOLOv7, YOLOv5-s, YOLOv3) and its transformer backbones (Swin,
+SwinV2, ViT, ViT-MoE, ResTv2, MCTformer), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -119,12 +120,37 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      draws; (d) `utils.profiler.trace` around 3 steps of (a)'s model, its
      top device ops printed, and `StepTimer`'s mean step.
 
+ 13. the transformer backbones: `swin_tiny.yaml` at full width and depth
+     (Swin-T, `neck: none`, the 4-level decoupled head, strides 4-32:
+     34,000 anchors an image), 80 classes, the config's bf16 (an fp32
+     backbone, a bf16 head), B=16, 640^2, its kernel launches counted from
+     0: 4 requests through `postprocess` at conf 1e-6 (the random head
+     scores ~1e-4: the NMS takes 1024 candidates of 34,000 rows; one
+     launch each; card == CPU postprocess), 4 steps with 50 label slots
+     and 4+1 steps through the NHWC augmentation with 100, 2 top-k
+     launches a step on [16,50,34000] / [16,100,34000] rows and 2 warps an
+     augmented one, finite losses with labels assigned; the path's own kernel calls recorded and run again
+     against the plain versions, bit for bit, and its top-k rows against
+     `torch.topk`; the fp32 head maps at B=1 of `swin_tiny` and
+     `vit_tiny_moe` and the Swin loss and its gradients at B=2, card
+     against CPU; the times (infer+NMS, both train steps with idle share
+     and peak memory, the top-k on its rows cold and back to back beside
+     its bound, plain version and `torch.topk`, the cold time also by CUDA
+     events less the flush's own); `python -m
+     pl_yolo_tpu_torch -c swin_tiny.yaml` on 32 JPEGs for one epoch and a
+     validation that prints mAP; then a request each, and 2 augmented
+     steps for `vit_tiny`, `vit_tiny_moe` (its peak memory), `restv2_tiny`
+     and `mctformer_small` (AdamW), of `swin_small`, `swin_base`,
+     `swin_large` and SwinV2 (`swin_tiny.yaml`, backbone renamed), with
+     images/s.
+
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
 script would take ~15 minutes. The script's total wall time is printed
 before the card's line. The line
-before the last is the `kernels` JSON record (the top-k kernel twice: on
-the YOLOX path's rows and on the YOLOv7 OTA's), and the last line is
+before the last is the `kernels` JSON record (the top-k kernel three
+times: on the YOLOX path's rows, on the YOLOv7 OTA's and on the Swin
+path's), and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
 """
@@ -161,7 +187,7 @@ AUG_STEPS, AUG_MAX_LABELS = 4, 100  # the augmented steps, as bench.py's
 AUG_LABEL_TOL = 1e-3  # px, on every label entry, with the same valid rows
 AUG_PIXEL_TOL = (8.0, 0.05)  # grey levels: max and mean |card - cpu|
 CONF, IOU, PRE_NMS_TOPK, MAX_DET = 0.01, 0.65, 1024, 300
-CONF_TRAINED = 1e-6  # for the one request served after the train steps
+CONF_TRAINED = 1e-6  # the request after the train steps; the Swin path
 # H100 SXM published peaks (NVIDIA data sheet, dense): non-tensor fp32 and HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # fp32 ops per box pair in the NMS IoU pass (csrc/nms_suppress.cu note)
@@ -231,6 +257,9 @@ OPTIONS_SEED = 4
 GENERAL_AUG = dict(degrees=10.0, shear=2.0, perspective=0.0005)
 GENERAL_STEPS, GENERAL_CHECK_BATCH = 3, 4
 PROFILE_STEPS, MEMORY_STEPS = 3, 2
+# phase 13: the transformer backbones, Swin-T on the YOLOX path at full size
+MODEL_DIR = ROOT / "pl_yolo_tpu_torch" / "configs" / "model"
+OTHER_AUG_STEPS = 2  # the ViT, ViT-MoE, ResTv2 and MCTformer detectors
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -1262,6 +1291,21 @@ def phase_trainer(torch, card: str, device) -> None:
     log(f"[trainer] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def assert_launched(before: dict, want: dict, what: str) -> None:
+    """Fail unless each kernel launched `want[name]` times (0 if absent)
+    since the counts `before`."""
+    got = {n: c - before[n] for n, c in launch_counts().items()}
+    want = {n: want.get(n, 0) for n in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, not {want}")
+
+
+def assert_finite_losses(torch, what: str, losses: dict) -> None:
+    for k, v in losses.items():
+        if v.requires_grad or not bool(torch.isfinite(v)):
+            raise AssertionError(f"{what}: bad {k} {v}")
+
+
 def ota_recorder(torch):
     """A context that records the inputs of the YOLOv7 loss's top-k calls
     (the OTA's IoU and -cost rows) and of its assignment, as the loss hands
@@ -1313,19 +1357,6 @@ def phase_anchor(torch, card: str, dev) -> dict:
             cfg["dtype"] = dtype
         return cfg
 
-    def launched(before, want, what):
-        """Fail unless each kernel launched `want[name]` times since the
-        counts `before`."""
-        got = {n: c - before[n] for n, c in launch_counts().items()}
-        want = {n: want.get(n, 0) for n in got}
-        if got != want:
-            raise AssertionError(f"{what}: launches {got}, not {want}")
-
-    def finite(what, losses):
-        for k, v in losses.items():
-            if v.requires_grad or not bool(torch.isfinite(v)):
-                raise AssertionError(f"{what}: bad {k} {v}")
-
     cfg = config(V7_CONFIG)
     model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
     fp32 = build_model(config(V7_CONFIG, None), NUM_CLASSES, device=dev,
@@ -1355,7 +1386,7 @@ def phase_anchor(torch, card: str, dev) -> dict:
         for x in requests:
             before = launch_counts()
             served.append(infer(model, x))
-            launched(before, {"nms_suppress": 1}, "yolov7 request")
+            assert_launched(before, {"nms_suppress": 1}, "yolov7 request")
     note("yolov7: training")
     optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
                                    total_steps=TOTAL_STEPS)
@@ -1368,7 +1399,7 @@ def phase_anchor(torch, card: str, dev) -> dict:
         before = launch_counts()
         with record() as (rows, assigns):
             history.append(step(state, requests[0], labels))
-        launched(before, {"topk_rows": 2}, f"yolov7 step {n}")
+        assert_launched(before, {"topk_rows": 2}, f"yolov7 step {n}")
         if n == 0:
             rows50, assign50 = rows, assigns[0]
     for n in range(AUG_STEPS + 1):
@@ -1377,7 +1408,7 @@ def phase_anchor(torch, card: str, dev) -> dict:
             aug_history.append(aug_step(state, aug_images, labels,
                                         generator=gen,
                                         aug_enable=n < AUG_STEPS))
-        launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+        assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
                  f"yolov7 augmented step {n}")
         if n == 0:
             rows100, assign100 = rows, assigns[0]
@@ -1407,7 +1438,7 @@ def phase_anchor(torch, card: str, dev) -> dict:
                                      f"postprocess ({field})")
     for what, hist in (("step", history), ("augmented step", aug_history)):
         for n, losses in enumerate(hist):
-            finite(f"yolov7 {what} {n}", losses)
+            assert_finite_losses(torch, f"yolov7 {what} {n}", losses)
             if not float(losses["proportion"]) > 0:
                 raise AssertionError(f"yolov7 {what} {n}: no anchor assigned")
     if [tuple(x.shape) for x, _ in rows50] != [(BATCH, MAX_LABELS, MAX_LABELS * 27)] * 2 \
@@ -1436,7 +1467,8 @@ def phase_anchor(torch, card: str, dev) -> dict:
             before = launch_counts()
             got = topk_lastdim(x, k)
             torch.cuda.synchronize()
-            launched(before, {"topk_rows": 1}, f"top-k on the {what}'s {name}")
+            assert_launched(before, {"topk_rows": 1},
+                            f"top-k on the {what}'s {name}")
             plain = topk_plain(x, k)
             library = torch.topk(x, k, dim=-1).values
             for other, against in ((plain, "plain"), (library, "torch.topk")):
@@ -1642,13 +1674,15 @@ def phase_anchor(torch, card: str, dev) -> dict:
     for n in range(2):
         before = launch_counts()
         v5_losses.append(v5_step(state, aug_images, labels, generator=gen))
-        launched(before, {"mosaic_warp": 2}, f"yolov5-s augmented step {n}")
-        finite(f"yolov5-s augmented step {n}", v5_losses[-1])
+        assert_launched(before, {"mosaic_warp": 2},
+                        f"yolov5-s augmented step {n}")
+        assert_finite_losses(torch, f"yolov5-s augmented step {n}",
+                             v5_losses[-1])
     before = launch_counts()
     v5.module.eval()
     with torch.inference_mode():
         preds, det = infer(v5, requests[1])
-    launched(before, {"nms_suppress": 1}, "yolov5-s request")
+    assert_launched(before, {"nms_suppress": 1}, "yolov5-s request")
     if not (bool(torch.isfinite(preds).all())
             and bool(torch.isfinite(det.boxes).all())):
         raise AssertionError("yolov5-s request: non-finite outputs")
@@ -2092,6 +2126,365 @@ def phase_options(torch, card: str, dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[options] phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return {"gate": result, "launches": counts, "max_abs_err": errs}
+
+
+def phase_transformers(torch, card: str, dev) -> dict:
+    """Phase 13 (see the module docstring), on the card `dev`. Returns the
+    top-k kernel's record on the Swin path's rows for the `kernels` line,
+    its launches there, and each kernel's max |kernel - plain| on the
+    path's own calls."""
+    import yaml
+    from pl_yolo_tpu_torch.data import augment
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.ops.cuda.topk import topk_plain, topk_rows
+    from pl_yolo_tpu_torch.ops.nms import postprocess
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.utils.config import (load_config,
+                                                validate_model_config)
+    t_phase = time.perf_counter()
+    record = path_call_recorder(torch)
+    torch.backends.cudnn.allow_tf32 = False  # as phase 4 left them
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def config(name, dtype="keep"):
+        path = MODEL_DIR / f"{name}.yaml"
+        cfg = validate_model_config(load_config(path), str(path))
+        if dtype != "keep":
+            cfg["dtype"] = dtype
+        return cfg
+
+    def infer(m, x, conf=CONF):
+        preds = m.loss.eval_decode(m.module(x))
+        return preds, postprocess(preds, conf_threshold=conf,
+                                  iou_threshold=IOU, max_det=MAX_DET,
+                                  pre_nms_topk=PRE_NMS_TOPK, device=dev)
+
+    def served_ok(what, preds, det, n_anchors):
+        if tuple(preds.shape) != (BATCH, n_anchors, 5 + NUM_CLASSES) \
+                or tuple(det.boxes.shape) != (BATCH, MAX_DET, 4):
+            raise AssertionError(f"{what}: shapes {tuple(preds.shape)}, "
+                                 f"{tuple(det.boxes.shape)}")
+        for name, t in (("preds", preds), ("boxes", det.boxes),
+                        ("scores", det.scores)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{what}: non-finite {name}")
+
+    def trained_ok(what, losses):
+        assert_finite_losses(torch, what, losses)
+        if not float(losses["proportion"]) > 0:
+            raise AssertionError(f"{what}: no anchor assigned")
+
+    def steps_of(model, cfg):
+        optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                       total_steps=TOTAL_STEPS)
+        state = TrainState.create(model.module, optimizer)
+        return state, make_train_step(model.loss.train_loss), \
+            make_train_step(model.loss.train_loss, augment_fn=aug_fn)
+
+    cfg = config("swin_tiny")
+    strides = tuple(cfg["loss"]["stride"])
+    n_anchors = sum((SIZE // s) ** 2 for s in strides)
+    model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    requests = [torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+                * 255.0 for _ in range(REQUESTS)]
+    labels = train_labels(torch, dev, BATCH)
+    aug_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS)
+    aug_fn = augment.make_augment_fn(aug_cfg, out_s2d=False)
+    aug_images = bench_images(torch, dev, BATCH, seed=4)
+
+    # the Swin path: serving, then training without and with augmentation,
+    # its kernel launches counted from 0 and its kernel calls recorded. The
+    # random Swin scores every anchor near its head's priors (~1e-4), below
+    # CONF: served at CONF_TRAINED, the NMS takes its full 1024 candidates
+    # of the 34,000 rows
+    note("swin: serving")
+    reset_launch_counts()
+    served, history, aug_history = [], [], []
+    with record() as calls:
+        with torch.inference_mode():
+            for x in requests:
+                before = launch_counts()
+                served.append(infer(model, x, CONF_TRAINED))
+                assert_launched(before, {"nms_suppress": 1}, "swin request")
+        note("swin: training")
+        state, step, aug_step = steps_of(model, cfg)
+        for n in range(TRAIN_STEPS):
+            before = launch_counts()
+            history.append(step(state, requests[0], labels))
+            assert_launched(before, {"topk_rows": 2}, f"swin step {n}")
+        for n in range(AUG_STEPS + 1):
+            before = launch_counts()
+            aug_history.append(aug_step(state, aug_images, labels,
+                                        generator=gen,
+                                        aug_enable=n < AUG_STEPS))
+            assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                            f"swin augmented step {n}")
+    torch.cuda.synchronize()
+    path_launches = launch_counts()
+    if not all(path_launches[n] > 0 for n in GATE_KERNELS):
+        raise AssertionError(f"the swin path skipped a kernel: "
+                             f"{path_launches}")
+    for preds, det in served:
+        served_ok("swin serving", preds, det, n_anchors)
+        ref = postprocess(preds.cpu(), conf_threshold=CONF_TRAINED,
+                          iou_threshold=IOU, max_det=MAX_DET,
+                          pre_nms_topk=PRE_NMS_TOPK, device="cpu")
+        for field in ("valid", "classes", "scores", "boxes"):
+            if not torch.equal(getattr(det, field).cpu(), getattr(ref, field)):
+                raise AssertionError(f"swin: card postprocess != CPU "
+                                     f"postprocess ({field})")
+    for what, hist in (("step", history), ("augmented step", aug_history)):
+        for n, losses in enumerate(hist):
+            trained_ok(f"swin {what} {n}", losses)
+    rows = {key[0][0]: by for key, by in calls["topk_rows"].items()}
+    if set(rows) != {(BATCH, MAX_LABELS, n_anchors),
+                     (BATCH, AUG_MAX_LABELS, n_anchors)}:
+        raise AssertionError(f"the swin path's top-k rows: {list(rows)}")
+    log(f"[swin] swin_tiny.yaml {cfg['backbone']['name']} embed "
+        f"{cfg['backbone']['embed_dim']} depths {cfg['backbone']['depths']}"
+        f", neck {cfg['neck']['name']}, head {cfg['head']['channels']}, "
+        f"strides {list(strides)}, bf16 head (fp32 backbone): {REQUESTS} "
+        f"requests of {BATCH}x{SIZE}x{SIZE} ({n_anchors} anchors an image) "
+        f"through eval_decode and postprocess at conf {CONF_TRAINED} "
+        f"(shapes, finiteness, card == "
+        f"CPU postprocess; kept {[int(d.valid.sum()) for _, d in served]}); "
+        f"{TRAIN_STEPS} steps (M={MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in history)
+        + f"; {AUG_STEPS}+1 augmented steps (NHWC, M={AUG_MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in aug_history)
+        + f"; proportion {float(history[-1]['proportion']):.3f} / "
+        f"{float(aug_history[-2]['proportion']):.3f}; launches on the path "
+        f"{path_launches}")
+
+    # the kernels on the path's own calls, bit for bit; the top-k also
+    # against torch.topk
+    checks = path_calls_equal_plain(torch, calls, "the swin path")
+    for shape, by in rows.items():
+        for args, _ in by:
+            got = topk_rows(*args)
+            if not torch.equal(got, torch.topk(args[0], args[1],
+                                               dim=-1).values):
+                raise AssertionError(f"topk_rows != torch.topk on the swin "
+                                     f"path's rows {shape}")
+    log(f"[swin] kernel == plain (bit for bit) on the path's own calls: "
+        f"{describe_path_checks(checks)}; topk_rows == torch.topk on each "
+        f"recorded row set, on {card}")
+    del calls
+
+    # card against CPU: the fp32 head maps at B=1 (TF32 off) of swin_tiny
+    # and vit_tiny_moe, and the swin loss and its gradients at B=2
+    note("swin: card against CPU")
+    x1 = requests[0][:1]
+    for name in ("swin_tiny", "vit_tiny_moe"):
+        fp32 = build_model(config(name, None), NUM_CLASSES, device=dev,
+                           seed=0)
+        with torch.inference_mode():
+            maps_card = [m.cpu() for m in fp32.module(x1)]
+            cpu_model = build_model(config(name, None), NUM_CLASSES,
+                                    device="cpu", seed=0)
+            maps_cpu = cpu_model.module(x1.cpu())
+        scale = max(1.0, max(float(m.abs().max()) for m in maps_cpu))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(maps_card, maps_cpu))
+        log(f"[swin] {name} fp32 head maps card vs CPU at B=1: max abs err "
+            f"{err:.3e} (max |map| {scale:.3f}, tolerance {MAPS_TOL} x "
+            f"scale)")
+        if not err <= MAPS_TOL * scale:
+            raise AssertionError(f"{name} fp32 head maps differ: {err}")
+        if name == "swin_tiny":
+            with torch.no_grad():
+                maps = [m.float() for m in
+                        fp32.module.train()(requests[0][:2])]
+        del fp32, cpu_model
+    sides = {}
+    loss_fn = model.loss.train_loss
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        outs = [m.detach().to(device).requires_grad_() for m in maps]
+        losses = loss_fn(outs, labels[:2].to(device))
+        losses["loss"].backward()
+        sides[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                       [o.grad.cpu() for o in outs])
+    (l_card, g_card), (l_cpu, g_cpu) = sides["card"], sides["cpu"]
+    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+                   for k in l_cpu)
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g_card, g_cpu))
+    log(f"[swin] loss card vs CPU on fp32 maps at B=2 ({n_anchors} "
+        f"anchors): loss {l_card['loss']:.6f} vs {l_cpu['loss']:.6f}, "
+        f"proportion {l_card['proportion']:.4f} vs {l_cpu['proportion']:.4f}"
+        f", max relative error of a loss entry {loss_err:.3e}, of a map's "
+        f"gradient {grad_err:.3e} (tolerance {LOSS_TOL})")
+    if not (loss_err <= LOSS_TOL and grad_err <= LOSS_TOL):
+        raise AssertionError(f"swin loss on the card != CPU: {loss_err}, "
+                             f"{grad_err}")
+    del maps, sides
+
+    # times, on a state whose learning rate stays near 0 (see phase 9)
+    note("swin: times")
+    torch.cuda.empty_cache()
+    model.module.eval()
+    with torch.inference_mode():
+        infer_ms = cuda_ms(torch, lambda: infer(model, requests[0],
+                                                CONF_TRAINED), 10)
+        infer_busy, _ = device_profile(torch, lambda: infer(
+            model, requests[0], CONF_TRAINED), 3)
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                   total_steps=10 ** 9)
+    state = TrainState.create(model.module, optimizer)
+    timed = {}
+    for what, fn in (("un-augmented", lambda: step(state, requests[0],
+                                                   labels)),
+                     ("augmented", lambda: aug_step(
+                         state, aug_images, labels, generator=gen))):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, fn, iters=6, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, top = device_profile(torch, fn, 2)
+        timed[what] = (ms, busy, peak, top)
+    log(f"[time] swin_tiny infer+NMS (conf {CONF_TRAINED}) bf16 head "
+        f"B={BATCH}: {infer_ms:.3f} "
+        f"ms/batch, {BATCH * 1000.0 / infer_ms:.1f} images/s, device "
+        f"busy {infer_busy:.3f} ms (idle share "
+        f"{1.0 - infer_busy / infer_ms:.3f}) on {card}")
+    for what, (ms, busy, peak, top) in timed.items():
+        log(f"[time] swin_tiny {what} train step B={BATCH}: {ms:.3f} "
+            f"ms/step, {BATCH * 1000.0 / ms:.1f} images/s, device busy "
+            f"{busy:.3f} ms (idle share {1.0 - busy / ms:.3f}), peak "
+            f"device memory {peak:.2f} GiB on {card}; top kernels, ms "
+            f"a step: " + "; ".join(f"{t:.4f} {name[:48]}"
+                                    for name, t in top[:6]))
+    rec = {}
+    # the profiler's per-kernel times sometimes miss events (a "cold" time
+    # under the bound); the cold time by CUDA events, the flush's own time
+    # taken off, is read beside it
+    flush_ms = cuda_ms(torch, l2_cold(torch, lambda: None), iters=20)
+    for shape, by in sorted(rows.items()):
+        for (args, _), name in zip(by, ("IoU", "-cost")):
+            x, k = args
+            n_rows, a = x.shape[0] * x.shape[1], x.shape[2]
+            bound = {"operations": n_rows * a / PEAK_FP32_FLOPS * 1e3,
+                     "bytes": (n_rows * a + n_rows * k) * 4
+                     / PEAK_BYTES * 1e3}
+            bound_by = max(bound, key=bound.get)
+
+            def call(x=x, k=k):
+                return topk_rows(x, k)
+
+            def device(fn):
+                return kernel_device_ms(torch, fn, ("topk_rows_kernel",))[
+                    "topk_rows_kernel"]
+            r = dict(ms=cuda_ms(torch, call, iters=50),
+                     device_ms=device(call),
+                     cold_ms=device(l2_cold(torch, call)),
+                     cold_events_ms=cuda_ms(torch, l2_cold(torch, call),
+                                            iters=20) - flush_ms,
+                     plain_ms=cuda_ms(torch, lambda: topk_plain(x, k),
+                                      iters=5, warmup=1),
+                     library_ms=cuda_ms(torch, lambda: torch.topk(
+                         x, k, dim=-1).values, iters=50),
+                     bound_ms=bound[bound_by], bound_by=bound_by)
+            rec[f"M={shape[1]}", name] = r
+            fmt = lambda ms: ("not measured" if ms is None
+                              else f"{ms * 1e3:.2f} us")
+            share = ("not measured" if r["cold_ms"] is None
+                     else f"{r['bound_ms'] / r['cold_ms']:.2f}")
+            log(f"[time] topk_rows on the swin M={shape[1]} step's {name} "
+                f"rows {tuple(x.shape)} k={k}: device time "
+                f"{fmt(r['cold_ms'])} with the L2 cold ({share} of the "
+                f"bound) in the profiler, {fmt(r['cold_events_ms'])} by CUDA "
+                f"events less the flush's {flush_ms * 1e3:.2f} us "
+                f"({r['bound_ms'] / r['cold_events_ms']:.2f} of the bound), "
+                f"{fmt(r['device_ms'])} back to back; "
+                f"{r['ms'] * 1e3:.2f} us a call by CUDA events; plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, torch.topk "
+                f"{r['library_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound_ms'] * 1e3:.3f} us ({bound_by}) on {card}")
+    del state, optimizer, step, aug_step, model
+    torch.cuda.empty_cache()
+
+    # the CLI on a few JPEGs: one short epoch and a validation with mAP
+    note("swin: CLI")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_swin_"))
+    try:
+        write_coco(tmp / "coco", ANCHOR_CLI_IMAGES, NUM_CLASSES, seed=5)
+        _, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+        path = MODEL_DIR / "swin_tiny.yaml"
+        rc, lines = run_cli(["-c", str(path), "-d", str(tmp / "data.yaml"),
+                             "--max_epochs", "1", "--logger", "csv",
+                             "--output_dir", str(tmp / "runs"), "-n",
+                             "swin_cli"], 300)
+        maps_line = [line for line in lines if line.startswith("mAP = ")]
+        epochs = epoch_lines(lines)
+        if rc != 0 or not maps_line or 0 not in epochs \
+                or not math.isfinite(epochs[0][2]):
+            raise AssertionError(f"swin CLI: exit {rc}:\n"
+                                 + "\n".join(lines[-30:]))
+        log(f"[swin] CLI `python -m pl_yolo_tpu_torch -c "
+            f"{path.relative_to(ROOT)}` on {ANCHOR_CLI_IMAGES} JPEGs: exit "
+            f"0, epoch 0 {epochs[0][1]:.1f} images/s, loss "
+            f"{epochs[0][2]:.3f}; '{maps_line[-1]}'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the other configs: a request each, and 2 augmented steps for the
+    # ViT, ViT-MoE, ResTv2 and MCTformer detectors (MCTformer under AdamW)
+    others = [(name, config(name), OTHER_AUG_STEPS)
+              for name in ("vit_tiny", "vit_tiny_moe", "restv2_tiny",
+                           "mctformer_small")]
+    others += [(name, config(name), 0)
+               for name in ("swin_small", "swin_base", "swin_large")]
+    v2 = config("swin_tiny")
+    v2["backbone"]["name"] = "swin_transformerv2"
+    others.append(("swin_tiny as SwinV2", v2, 0))
+    for name, c, n_steps in others:
+        note(f"{name}")
+        m = build_model(c, NUM_CLASSES, device=dev, seed=0)
+        n_a = sum((SIZE // s) ** 2 for s in c["loss"].get("stride",
+                                                         (8, 16, 32)))
+        before = launch_counts()
+        with torch.inference_mode():
+            preds, det = infer(m, requests[1])
+        assert_launched(before, {"nms_suppress": 1}, f"{name} request")
+        served_ok(f"{name} request", preds, det, n_a)
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: infer(m, requests[1]), 3, warmup=1)
+        line = (f"[time] {name}: infer+NMS B={BATCH} {ms:.3f} ms, "
+                f"{BATCH * 1000.0 / ms:.1f} images/s")
+        if n_steps:
+            optimizer, _ = build_optimizer(m.module, c["optimizer"],
+                                           total_steps=TOTAL_STEPS)
+            state = TrainState.create(m.module, optimizer)
+            step = make_train_step(m.loss.train_loss, augment_fn=aug_fn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for n in range(n_steps):
+                before = launch_counts()
+                losses.append(step(state, aug_images, labels, generator=gen))
+                assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                                f"{name} augmented step {n}")
+                trained_ok(f"{name} augmented step {n}", losses[-1])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            step_ms = cuda_ms(torch, lambda: step(
+                state, aug_images, labels, generator=gen), 3, warmup=0)
+            line += (f"; {n_steps} augmented steps ({type(optimizer).__name__}"
+                     f"), loss " + " ".join(f"{float(h['loss']):.4f}"
+                                            for h in losses)
+                     + f", peak device memory {peak:.2f} GiB; then "
+                     f"{step_ms:.1f} ms a step, {BATCH * 1000.0 / step_ms:.1f}"
+                     f" images/s")
+            del state, optimizer, step
+        log(line + f" on {card}")
+        del m, preds, det
+        torch.cuda.empty_cache()
+    log(f"[swin] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": path_launches["topk_rows"],
+            "max_abs_err": {name: err for name, (err, _) in checks.items()},
+            "records": rec}
 
 
 def main() -> int:
@@ -3143,6 +3536,17 @@ def main() -> int:
     topk_err = max(topk_err, options["max_abs_err"]["topk_rows"])
     warp_err = max(warp_err, options["max_abs_err"]["mosaic_warp"])
 
+    # 13. the transformer backbones
+    note("transformer backbones")
+    swin = phase_transformers(torch, card, dev)
+    max_err = max(max_err, swin["max_abs_err"]["nms_suppress"])
+    warp_err = max(warp_err, swin["max_abs_err"]["mosaic_warp"])
+
+    def swin_mean(key):
+        recs = [swin["records"][f"M={MAX_LABELS}", name]
+                for name in ("IoU", "-cost")]
+        return sum(r[key] for r in recs) / len(recs)
+
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -3184,7 +3588,16 @@ def main() -> int:
         "ms": v7_mean("ms"), "plain_ms": v7_mean("plain_ms"),
         "bound_ms": v7["records"]["M=50", "-cost"]["bound_ms"],
         "bound_by": v7["records"]["M=50", "-cost"]["bound_by"],
-        "library_ms": v7_mean("library_ms")}]}))
+        "library_ms": v7_mean("library_ms")}, {
+        "name": "topk_rows (swin_tiny rows, A=34000)", "route": "cuda",
+        "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",
+        "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
+        "launches": swin["launches"],
+        "max_abs_err": swin["max_abs_err"]["topk_rows"],
+        "ms": swin_mean("ms"), "plain_ms": swin_mean("plain_ms"),
+        "bound_ms": swin["records"][f"M={MAX_LABELS}", "-cost"]["bound_ms"],
+        "bound_by": swin["records"][f"M={MAX_LABELS}", "-cost"]["bound_by"],
+        "library_ms": swin_mean("library_ms")}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

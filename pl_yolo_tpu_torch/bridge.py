@@ -1,22 +1,33 @@
 """Weight bridge between the JAX package's flax variables and the port's
 torch state_dict.
 
-The port names its submodules after the flax modules, so a flax path maps
-to a torch key by a rename, plus a transpose for conv kernels:
+The port names its submodules and parameters after the flax modules and
+leaves, so a flax path maps to a torch key by a rename, plus a layout
+change for kernels:
 
     params/<path>/kernel   [kh,kw,cin/g,cout] HWIO  <-> <path>.weight OIHW
         (a `Conv1x1` kernel [1,1,cin,cout] and a depthwise kernel
          [kh,kw,1,c] are the same case: the group layout is kept)
+    params/<path>/kernel   [kh,kw,cin,cout] of an   <-> <path>.weight
+        nn.ConvTranspose (kernel = stride)               [cin,cout,kh,kw],
+                                                         spatially flipped
+    params/<path>/kernel   [in,out] (nn.Dense)      <-> <path>.weight [out,in]
     params/<path>/bias                              <-> <path>.bias
-    params/<path>/bn/scale, bn/bias                 <-> <path>.bn.weight, bn.bias
-    params/<path>/ln/scale, ln/bias                 <-> <path>.ln.weight, ln.bias
-    batch_stats/<path>/bn/mean, bn/var              <-> <path>.bn.running_mean,
-                                                        bn.running_var
+    params/<path>/scale    (BatchNorm, LayerNorm)   <-> <path>.weight
+    batch_stats/<path>/mean, var                    <-> <path>.running_mean,
+                                                        running_var
     params/<path>/ia{k}, im{k} [1,1,1,C]            <-> <path>.ia{k}, im{k}
                                                         [1,C,1,1]
+    params/<path>/<any other leaf>                  <-> <path>.<leaf>, as is
+        (the transformer backbones' free parameters: `pos_embed`,
+         `cls_token`, `relative_position_bias_table`, `logit_scale`, the
+         stacked towers' `blocks_*` [L, ...], ...)
 
-A BatchNorm is a module named `bn`, or one of RepConv's `rbr_dense_bn`,
-`rbr_1x1_bn` and `rbr_identity`; a LayerNorm (`norm: ln`) is named `ln`;
+flax's transposed conv with kernel = stride is torch's `conv_transpose2d`
+with the kernel flipped in both spatial axes. A `ConvTranspose2d`'s weight
+has the shape of a conv weight, so the functions that go from torch to
+flax, and from flax to torch without a module, tell it apart only by the
+`module` they are given (`load_variables` always has one).
 `ia{k}` and `im{k}` are the implicit head's priors.
 
 `num_batches_tracked` (torch only) is written as 0 and dropped on the way
@@ -40,8 +51,6 @@ import torch
 from torch import nn
 
 _NPZ_META = "__meta__"
-_BN_NAMES = frozenset({"bn", "rbr_dense_bn", "rbr_1x1_bn", "rbr_identity"})
-_LN_NAME = "ln"
 _IMPLICIT = re.compile(r"i[am]\d+")  # the implicit head's priors
 
 
@@ -56,22 +65,34 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return flat
 
 
-def _to_torch_key(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
+def _conv_transposes(module: nn.Module | None) -> frozenset[str]:
+    """The paths of `module`'s transposed convs."""
+    if module is None:
+        return frozenset()
+    return frozenset(name for name, m in module.named_modules()
+                     if isinstance(m, nn.ConvTranspose2d))
+
+
+def _to_torch_key(path: tuple, value: np.ndarray,
+                  conv_transposes: frozenset[str] = frozenset()
+                  ) -> tuple[str, np.ndarray]:
     collection, *mod, leaf = path
-    in_bn = bool(mod) and mod[-1] in _BN_NAMES
-    in_ln = bool(mod) and mod[-1] == _LN_NAME
     if collection == "params":
         if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
             return ".".join(mod + [leaf]), value.transpose(0, 3, 1, 2)
-        if leaf == "kernel" and value.ndim == 4 and not in_bn:
+        if leaf == "kernel" and value.ndim == 4:
+            if ".".join(mod) in conv_transposes:
+                return (".".join(mod + ["weight"]),
+                        value[::-1, ::-1].transpose(2, 3, 0, 1))
             return ".".join(mod + ["weight"]), value.transpose(3, 2, 0, 1)
-        if leaf == "bias":
-            return ".".join(mod + ["bias"]), value
-        if leaf == "scale" and (in_bn or in_ln):
+        if leaf == "kernel" and value.ndim == 2:
+            return ".".join(mod + ["weight"]), value.T
+        if leaf == "scale":
             return ".".join(mod + ["weight"]), value
-    elif collection == "batch_stats" and in_bn:
-        if leaf in ("mean", "var"):
-            return ".".join(mod + [f"running_{leaf}"]), value
+        if leaf != "kernel":  # "bias" and the free parameters
+            return ".".join(mod + [leaf]), value
+    elif collection == "batch_stats" and leaf in ("mean", "var"):
+        return ".".join(mod + [f"running_{leaf}"]), value
     raise KeyError(f"unmapped flax variable: {'/'.join(path)} "
                    f"{tuple(value.shape)}")
 
@@ -83,8 +104,9 @@ def variables_to_state_dict(variables: Mapping,
     any key missing from or unknown to its state_dict, and ValueError on a
     shape that differs."""
     sd: dict[str, torch.Tensor] = {}
+    convt = _conv_transposes(module)
     for path, value in _flatten(variables).items():
-        key, arr = _to_torch_key(path, value)
+        key, arr = _to_torch_key(path, value, convt)
         sd[key] = torch.from_numpy(np.array(arr, np.float32))
         if key.endswith("running_var"):
             sd[key[:-len("running_var")] + "num_batches_tracked"] = \
@@ -110,29 +132,34 @@ def load_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     return module
 
 
-def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
+def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor],
+                            module: nn.Module | None = None) -> dict:
     """torch state_dict -> nested numpy {"params": ..., "batch_stats": ...}
-    in the flax layout, each array a copy (the module may train on). Raises
-    KeyError on a key it cannot map."""
+    in the flax layout, each array a copy (the module may train on).
+    `module`, the state_dict's own, is needed where it holds a
+    ConvTranspose2d. Raises KeyError on a key it cannot map."""
+    convt = _conv_transposes(module)
     out: dict = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
         value = t.detach().cpu().numpy()
-        in_bn = bool(mod) and mod[-1] in _BN_NAMES
-        in_ln = bool(mod) and mod[-1] == _LN_NAME
-        if leaf == "num_batches_tracked" and in_bn:
+        collection, name = "params", leaf
+        if leaf == "num_batches_tracked":
             continue
         if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
-            collection, name, value = "params", leaf, value.transpose(0, 2, 3, 1)
-        elif leaf == "weight" and not in_bn and value.ndim == 4:
-            collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
-        elif leaf == "bias":
-            collection, name = "params", "bias"
-        elif leaf == "weight" and (in_bn or in_ln):
-            collection, name = "params", "scale"
-        elif leaf in ("running_mean", "running_var") and in_bn:
+            value = value.transpose(0, 2, 3, 1)
+        elif leaf == "weight" and value.ndim == 4:
+            name = "kernel"
+            value = (value.transpose(2, 3, 0, 1)[::-1, ::-1]
+                     if ".".join(mod) in convt
+                     else value.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and value.ndim == 2:
+            name, value = "kernel", value.T
+        elif leaf == "weight" and value.ndim == 1:
+            name = "scale"
+        elif leaf in ("running_mean", "running_var"):
             collection, name = "batch_stats", leaf[len("running_"):]
-        else:
+        elif leaf == "weight":
             raise KeyError(f"unmapped torch key: {key} {tuple(value.shape)}")
         node = out[collection]
         for part in mod:
@@ -147,7 +174,8 @@ def load_momentum(optimizer: torch.optim.Optimizer, module: nn.Module,
     `momentum_buffer` of each of `module`'s parameters in `optimizer` (SGD).
     Raises KeyError unless the trace names exactly the module's parameters."""
     named = dict(module.named_parameters())
-    bufs = dict(_to_torch_key(path, value)
+    convt = _conv_transposes(module)
+    bufs = dict(_to_torch_key(path, value, convt)
                 for path, value in _flatten(trace, ("params",)).items())
     if set(bufs) != set(named):
         raise KeyError(
@@ -165,4 +193,4 @@ def momentum_to_trace(optimizer: torch.optim.Optimizer,
     as a numpy tree shaped like flax `params`."""
     bufs = {name: optimizer.state[p]["momentum_buffer"]
             for name, p in module.named_parameters()}
-    return state_dict_to_variables(bufs)["params"]
+    return state_dict_to_variables(bufs, module)["params"]

@@ -124,6 +124,50 @@ class LayerNorm2d(nn.Module):
         return ((xf - mean) * mul + self.bias[:, None, None]).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis (the transformer backbones'
+    tokens and NHWC maps): eps 1e-6 by default, `weight` (flax `scale`) and
+    `bias`, the statistics in fp32 as mean(x²) - mean(x)² clamped at 0, as
+    `LayerNorm2d` computes them over the channels of an NCHW tensor."""
+
+    def __init__(self, num_features: int, eps: float = LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class SameConv2d(nn.Conv2d):
+    """A bare flax `nn.Conv` (its default padding 'SAME'): the input is
+    padded so that the output has ceil(size / stride) rows and columns,
+    the odd pixel of an uneven split at the bottom and right, as XLA pads
+    (a 3x3 stride-2 conv on an even map pads 0 above and 1 below)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, groups: int = 1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride, 0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = []
+        for size, k, s in zip(reversed(x.shape[2:]),
+                              reversed(self.kernel_size),
+                              reversed(self.stride)):
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        if any(pads):
+            x = F.pad(x, pads)
+        return super().forward(x)
+
+
 def _norms(norm: str | None, num_features: int
            ) -> tuple[nn.Module | None, nn.Module | None]:
     """(bn, ln) of a block: the module under its flax name, the other None."""

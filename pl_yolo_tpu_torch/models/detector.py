@@ -1,6 +1,7 @@
 """One-stage detector assembly + registry, port of
-`pl_yolo_tpu/models/detector.py` for the YOLOX family and the anchor-based
-YOLOv7 / YOLOv5 / YOLOv3 families.
+`pl_yolo_tpu/models/detector.py` for the YOLOX family, the anchor-based
+YOLOv7 / YOLOv5 / YOLOv3 families and the transformer backbones (Swin,
+SwinV2, ViT with its MoE FFN, ResTv2, MCTformer; `neck: none`).
 
 `build_model(cfg, num_classes)` composes backbone -> neck -> head from the
 YAML config sections and returns a `DetectionModel`: the torch module, its
@@ -25,6 +26,11 @@ from .. import resolve_device
 from ..layers.blocks import compute_dtype
 from .backbones.cspdarknet import CSPDarkNet
 from .backbones.eelan import EELAN
+from .backbones.mctformer import MCTformer
+from .backbones.restv2 import ResTV2
+from .backbones.swin import SwinTransformer
+from .backbones.swinv2 import SwinTransformerV2
+from .backbones.vit import VisionTransformer
 from .heads.decoupled_head import DecoupledHead
 from .heads.implicit_head import ImplicitHead
 from .heads.simple_head import SimpleHead
@@ -53,12 +59,24 @@ class OneStageDetector(nn.Module):
         return self.head(self.neck(self.backbone(x.permute(0, 3, 1, 2))))
 
 
+class NoNeck(nn.Identity):
+    """`neck: none`: the backbone's maps go to the head as they are."""
+
+    def __init__(self, feat_channels: Sequence[int]):
+        super().__init__()
+        self.out_channels = list(feat_channels)
+
+
 # ---------------------------------------------------------------------------
-# Registries. Each factory: (cfg-dict, input widths, dtype) -> torch module.
-# Torch modules need their input widths at build time; flax infers them.
+# Registries. Each factory: (cfg-dict, input widths, dtype) -> torch module;
+# a backbone's takes the input size in place of the widths. Torch modules
+# need their input widths at build time, where flax infers them; the Swin
+# backbones' position tables depend on the input size, as a flax init's do.
+# The transformer backbones compute in fp32 whatever `dtype`: the JAX
+# package's compute dtype reaches only its conv blocks, and they use none.
 # ---------------------------------------------------------------------------
 
-def _cspdarknet(cfg: dict, dtype) -> nn.Module:
+def _cspdarknet(cfg: dict, dtype, input_size) -> nn.Module:
     db = cfg.get("drop_block", {}) or {}
     return CSPDarkNet(
         depths=tuple(cfg["depths"]),
@@ -99,7 +117,7 @@ def _decoupled_head(cfg: dict, num_classes: int,
     )
 
 
-def _eelan(cfg: dict, dtype) -> nn.Module:
+def _eelan(cfg: dict, dtype, input_size) -> nn.Module:
     return EELAN(
         depths=tuple(cfg["depths"]),
         channels=tuple(cfg["channels"]),
@@ -142,13 +160,67 @@ def _simple_head(cfg: dict, num_classes: int,
     )
 
 
+def _swin(cfg: dict, dtype, input_size, v2: bool = False) -> nn.Module:
+    klass = SwinTransformerV2 if v2 else SwinTransformer
+    return klass(
+        embed_dim=int(cfg.get("embed_dim", 96)),
+        depths=tuple(cfg.get("depths", (2, 2, 6, 2))),
+        num_heads=tuple(cfg.get("num_heads", (3, 6, 12, 24))),
+        window_size=int(cfg.get("window_size", 7)),
+        mlp_ratio=float(cfg.get("mlp_ratio", 4.0)),
+        out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
+        drop_path_rate=float(cfg.get("drop_path_rate", 0.0)),
+        input_size=tuple(input_size),
+    )
+
+
+def _vit(cfg: dict, dtype, input_size) -> nn.Module:
+    return VisionTransformer(
+        embed_dim=int(cfg.get("embed_dim", 768)),
+        depth=int(cfg.get("depth", 12)),
+        num_heads=int(cfg.get("num_heads", 12)),
+        patch_size=int(cfg.get("patch_size", 16)),
+        mlp_ratio=float(cfg.get("mlp_ratio", 4.0)),
+        moe_experts=int(cfg.get("moe_experts", 0)),
+        moe_capacity=float(cfg.get("moe_capacity", 1.25)),
+    )
+
+
+def _restv2(cfg: dict, dtype, input_size) -> nn.Module:
+    return ResTV2(
+        depths=tuple(cfg.get("depths", (1, 2, 6, 2))),
+        embed_dims=tuple(cfg.get("embed_dims", (96, 192, 384, 768))),
+        num_heads=tuple(cfg.get("num_heads", (1, 2, 4, 8))),
+        sr_ratios=tuple(cfg.get("sr_ratios", (8, 4, 2, 1))),
+        drop_path_rate=float(cfg.get("drop_path_rate", 0.0)),
+        outputs=tuple(cfg.get("outputs", ("stage2", "stage3", "stage4"))),
+    )
+
+
+def _mctformer(cfg: dict, dtype, input_size) -> nn.Module:
+    return MCTformer(
+        num_classes=int(cfg.get("num_cls_tokens", 80)),
+        embed_dim=int(cfg.get("embed_dim", 384)),
+        depth=int(cfg.get("depth", 12)),
+        num_heads=int(cfg.get("num_heads", 6)),
+        patch_size=int(cfg.get("patch_size", 16)),
+        mlp_ratio=float(cfg.get("mlp_ratio", 4.0)),
+    )
+
+
 BACKBONES: dict[str, Callable[..., nn.Module]] = {
     "cspdarknet": _cspdarknet,
     "eelan": _eelan,
+    "swin_transformer": _swin,
+    "swin_transformerv2": functools.partial(_swin, v2=True),
+    "vision_transformer": _vit,
+    "restv2": _restv2,
+    "mctformer": _mctformer,
 }
 NECKS: dict[str, Callable[..., nn.Module]] = {
     "csppafpn": _csppafpn,
     "yolov7neck": _yolov7neck,
+    "none": lambda cfg, feat_channels, dtype: NoNeck(feat_channels),
 }
 HEADS: dict[str, Callable[..., nn.Module]] = {
     "decoupled_head": _decoupled_head,
@@ -256,20 +328,27 @@ class DetectionModel:
     cfg: dict[str, Any]
 
 
-def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's default conv init: truncated normal (+-2 sd) of variance
-    1/fan_in, the sd corrected for the truncation."""
-    fan_in = weight[0].numel()
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
+                   fan_in: int | None = None) -> None:
+    """flax's default conv and dense init: truncated normal (+-2 sd) of
+    variance 1/fan_in (default: a conv or linear weight's, all but the
+    leading axis), the sd corrected for the truncation."""
+    fan_in = fan_in or weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / .87962566103423978
     nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                           generator=generator)
 
 
 def build_model(cfg: dict, num_classes: int, device=None,
-                seed: int = 0) -> DetectionModel:
+                seed: int = 0, input_size: Sequence[int] = (640, 640)
+                ) -> DetectionModel:
     """Compose a detector from a model-config dict, on `device` (default
-    the CUDA card), in eval mode, with conv kernels (and the implicit
-    head's priors) drawn from a `torch.Generator` seeded with `seed`.
+    the CUDA card), in eval mode, with conv and dense kernels (and the
+    implicit head's priors, the transformer backbones' free parameters)
+    drawn from a `torch.Generator` seeded with `seed`. `input_size` is the
+    (H, W) a flax init would see: the Swin backbones size their position
+    tables from it (a stage whose map is below the window has a smaller
+    window), and refuse another size that needs other tables.
     Top-level `dtype: bfloat16` runs conv/BN in bf16 with fp32 params;
     decode stays fp32. Top-level `remat: true` makes the backbone and neck
     that support it (CSPDarkNet, CSPPAFPN) recompute their CSP layers in
@@ -290,7 +369,7 @@ def build_model(cfg: dict, num_classes: int, device=None,
     # nn.Module constructors draw from the global RNG; keep it untouched
     # and draw every kernel from the explicit generator instead.
     with torch.random.fork_rng(devices=[]):
-        backbone = BACKBONES[b_cfg["name"]](b_cfg, dtype)
+        backbone = BACKBONES[b_cfg["name"]](b_cfg, dtype, input_size)
         neck = NECKS[n_cfg["name"]](n_cfg, backbone.out_channels, dtype)
         head = HEADS[h_cfg["name"]](h_cfg, num_classes, neck.out_channels,
                                     dtype)
@@ -304,8 +383,19 @@ def build_model(cfg: dict, num_classes: int, device=None,
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
                 _lecun_normal_(m.weight, gen)
+            elif isinstance(m, (nn.Linear, nn.ConvTranspose2d)):
+                # a transposed conv's weight is [in, out, kh, kw]; flax's
+                # fan_in of its [kh, kw, in, out] kernel is kh·kw·in
+                fan_in = (m.weight.numel() // m.weight.shape[1]
+                          if isinstance(m, nn.ConvTranspose2d) else None)
+                _lecun_normal_(m.weight, gen, fan_in)
+                if m.bias is not None:
+                    m.bias.zero_()  # flax's zero biases
             elif isinstance(m, ImplicitHead):
                 m.reset_implicit_(gen)
+        for m in module.modules():
+            if hasattr(m, "init_weights_"):
+                m.init_weights_(gen)
     module = module.to(device).eval()
     loss = LOSSES[l_cfg["name"]](l_cfg, num_classes)
     return DetectionModel(module=module, loss=loss, num_classes=num_classes,

@@ -23,3 +23,16 @@ def _constant(values: tuple, dtype: torch.dtype, device: torch.device
               ) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+def array_constant(make, *args, device) -> torch.Tensor:
+    """`torch.from_numpy(make(*args))` on `device`, made once for each
+    (make, args, device) and never written (masks and index tables of a
+    layer, from the map size it meets); see `constant`."""
+    return _array_constant(make, args, torch.device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _array_constant(make, args: tuple, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device)

@@ -108,7 +108,8 @@ class Trainer:
                                                  cache=cache_images)
         self.num_classes = self.datamodule.num_classes
         self.model: DetectionModel = build_model(
-            model_cfg, self.num_classes, device=self.device, seed=seed)
+            model_cfg, self.num_classes, device=self.device, seed=seed,
+            input_size=tuple(self.datamodule.train_size))
         self.ckpt = CheckpointManager(self.out_dir / "checkpoints",
                                       max_to_keep=save_top_k, monitor="mAP")
 

@@ -122,9 +122,17 @@ def _assign_inputs(maps, labels):
     return jargs, targs
 
 
+@functools.cache
+def _jax_assign_fn(chunk):
+    """The JAX assignment, vmapped and jitted (eagerly, its ops compile one
+    by one)."""
+    return jax.jit(jax.vmap(
+        functools.partial(jyolox.simota_assign, chunk=chunk),
+        in_axes=(0, 0, 0, 0, 0, 0, None, None, None)))
+
+
 def _jax_assign(jargs, chunk=None):
-    return jax.vmap(functools.partial(jyolox.simota_assign, chunk=chunk),
-                    in_axes=(0, 0, 0, 0, 0, 0, None, None, None))(*jargs)
+    return _jax_assign_fn(chunk)(*jargs)
 
 
 def _assert_assign_equal(got, want):
@@ -156,13 +164,23 @@ def test_simota_chunked_equals_dense_and_jax_chunked(chunk):
     _assert_assign_equal(chunked, _jax_assign(jargs, chunk=chunk))
 
 
-def _jax_loss_and_grads(maps, labels, **kw):
-    def fn(outs):
-        losses = jyolox.yolox_loss(outs, jnp.asarray(labels), NUM_CLASSES,
-                                   STRIDES, **kw)
+@functools.cache
+def _jax_loss_fn(static_kw):
+    """The JAX loss's value and map gradients, jitted for one set of Python
+    keywords; array keywords are traced arguments."""
+    def fn(outs, labels, array_kw):
+        losses = jyolox.yolox_loss(outs, labels, NUM_CLASSES, STRIDES,
+                                   **dict(static_kw), **array_kw)
         return losses["loss"], losses
-    (_, losses), grads = jax.value_and_grad(fn, has_aux=True)(
-        [jnp.asarray(m) for m in maps])
+    return jax.jit(jax.value_and_grad(fn, has_aux=True))
+
+
+def _jax_loss_and_grads(maps, labels, **kw):
+    array_kw = {k: v for k, v in kw.items() if isinstance(v, jax.Array)}
+    static_kw = tuple(sorted((k, v) for k, v in kw.items()
+                             if k not in array_kw))
+    (_, losses), grads = _jax_loss_fn(static_kw)(
+        [jnp.asarray(m) for m in maps], jnp.asarray(labels), array_kw)
     return losses, grads
 
 

@@ -48,17 +48,19 @@ def slice_outputs():
     """JAX and torch head maps and decodes of one seeded batch."""
     cfg = _tiny_cfg()
     jmodel = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
-    variables = jax.device_get(jmodel.init(jax.random.key(0),
-                                           input_size=(SIZE, SIZE)))
+    # jitted: eagerly, a flax init and apply compile their ops one by one
+    variables = jax.device_get(jax.jit(lambda k: jmodel.init(
+        k, input_size=(SIZE, SIZE)))(jax.random.key(0)))
     tmodel = build_model(copy.deepcopy(cfg), NUM_CLASSES, device="cpu")
     load_variables(tmodel.module, variables)
     x = np.random.default_rng(0).uniform(0, 255, (2, SIZE, SIZE, 3)
                                          ).astype(np.float32)
-    jmaps = jmodel.module.apply(variables, jnp.asarray(x), False)
+    jmaps = jax.jit(lambda v, x: jmodel.module.apply(v, x, False))(
+        variables, jnp.asarray(x))
     with torch.no_grad():
         tmaps = tmodel.module(torch.from_numpy(x))
     return dict(jmaps=[np.asarray(m) for m in jmaps], tmaps=tmaps,
-                jdec=np.asarray(jmodel.loss.eval_decode(jmaps)),
+                jdec=np.asarray(jax.jit(jmodel.loss.eval_decode)(jmaps)),
                 tdec=tmodel.loss.eval_decode(tmaps).numpy())
 
 

@@ -86,8 +86,9 @@ def tiny_variables():
     cfg["head"]["channels"] = [32, 64, 128]
     cfg["dtype"] = None
     jmodel = jax_build_model(copy.deepcopy(cfg), 3)
-    variables = jax.device_get(jmodel.init(jax.random.key(1),
-                                           input_size=(64, 64)))
+    # jitted: eagerly, a flax init compiles its ops one by one
+    variables = jax.device_get(jax.jit(lambda k: jmodel.init(
+        k, input_size=(64, 64)))(jax.random.key(1)))
     return cfg, variables
 
 

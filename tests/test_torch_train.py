@@ -322,8 +322,9 @@ def trained():
     cfg["optimizer"]["learning_rate"] = BASE_LR
     images, labels = _batch()
     jmodel = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
-    variables = jax.device_get(jmodel.init(jax.random.key(0),
-                                           input_size=(SIZE, SIZE)))
+    # jitted: eagerly, a flax init compiles its ops one by one
+    variables = jax.device_get(jax.jit(lambda k: jmodel.init(
+        k, input_size=(SIZE, SIZE)))(jax.random.key(0)))
     tx, _ = jax_build_optimizer(cfg["optimizer"], total_steps=TOTAL_STEPS)
     jstate = jstate_mod.TrainState.create(variables, tx)
     jstep = jstate_mod.make_train_step(
@@ -491,8 +492,9 @@ def test_config_copy_equals_the_jax_packages(path):
 
 
 def test_all_yolox_configs_are_copied():
-    """The model YAMLs the port builds: the YOLOX family (with DropBlock)
-    and the anchor families (YOLOv7, YOLOv5-s)."""
+    """The model YAMLs the port builds: the YOLOX family (with DropBlock),
+    the anchor families (YOLOv7, YOLOv5-s) and the transformer backbones
+    (Swin, ViT with and without MoE, ResTv2, MCTformer)."""
     names = {p.name for p in (CONFIG_DIR / "model").glob("*.yaml")}
     assert names == (
         {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x",
@@ -500,4 +502,7 @@ def test_all_yolox_configs_are_copied():
         | {f"{n}.yaml" for n in ("yolov7", "yolov7_tiny", "al_yolov7",
                                  "al_yolov7_tiny", "gc10_yolov7",
                                  "neu_yolov7", "neu_yolov7_tiny",
-                                 "yolov5_s")})
+                                 "yolov5_s")}
+        | {f"{n}.yaml" for n in ("swin_tiny", "swin_small", "swin_base",
+                                 "swin_large", "vit_tiny", "vit_tiny_moe",
+                                 "restv2_tiny", "mctformer_small")})
