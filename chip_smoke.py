@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's YOLOX-s serving and training paths, its anchor
-families (YOLOv7, YOLOv5-s, YOLOv3) and its transformer backbones (Swin,
-SwinV2, ViT, ViT-MoE, ResTv2, MCTformer), on one CUDA card.
+families (YOLOv7, YOLOv5-s, YOLOv3), its transformer backbones (Swin,
+SwinV2, ViT, ViT-MoE, ResTv2, MCTformer) and its mobile backbones
+(e-YOLOX, CSPMobileNext, MobileNetV3-S/L, ShuffleNetV2), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -142,7 +143,27 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      steps for `vit_tiny`, `vit_tiny_moe` (its peak memory), `restv2_tiny`
      and `mctformer_small` (AdamW), of `swin_small`, `swin_base`,
      `swin_large` and SwinV2 (`swin_tiny.yaml`, backbone renamed), with
-     images/s.
+     images/s;
+ 14. the mobile backbones: `e-yolox_s.yaml` at full width and depth
+     (ECMNet with its Focus stem, the AL-PAFPN neck with its bicubic
+     upsampling, the decoupled head), 80 classes, bf16, B=16, 640^2, its
+     kernel launches counted from 0: 4 requests through `postprocess` at
+     conf 1e-6 (the NMS takes its full 1024 candidates; one launch each;
+     card == CPU postprocess), 4 steps with 50 label slots and 4+1 steps
+     through `make_augment_fn(..., out_s2d=True)` with the model under
+     `stem_input_s2d()` (the s2d route) with 100, 2 top-k launches a step
+     on [16,50,8400] / [16,100,8400] rows and 2 warps an augmented one,
+     finite losses with labels assigned; the path's own kernel calls
+     recorded and run again against the plain versions, bit for bit, and
+     its top-k rows against `torch.topk`; the fp32 head maps at B=1, card
+     against CPU; the times (infer+NMS, both train steps with idle share
+     and peak memory; cuDNN autotuning off, as in the whole phase);
+     `python -m pl_yolo_tpu_torch -c e-yolox_s.yaml` on
+     32 JPEGs for one epoch and a validation that prints mAP; then a
+     request and 2 augmented steps, with images/s, of `e-yolox_tiny`,
+     `_m`, `_l`, `_x` and a CSPMobileNext detector (s2d route), and of
+     MobileNetV3-S, MobileNetV3-L and ShuffleNetV2 with its SE, each with
+     a CSP-PAFPN neck and decoupled head as wide as its maps (NHWC route).
 
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
@@ -150,7 +171,9 @@ script would take ~15 minutes. The script's total wall time is printed
 before the card's line. The line
 before the last is the `kernels` JSON record (the top-k kernel three
 times: on the YOLOX path's rows, on the YOLOv7 OTA's and on the Swin
-path's), and the last line is
+path's; the four kernels' `launches` add the e-YOLOX path's to the
+YOLOX path's, which `launches_e_yolox_s` gives alone), and the last line
+is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
 """
@@ -260,6 +283,13 @@ PROFILE_STEPS, MEMORY_STEPS = 3, 2
 # phase 13: the transformer backbones, Swin-T on the YOLOX path at full size
 MODEL_DIR = ROOT / "pl_yolo_tpu_torch" / "configs" / "model"
 OTHER_AUG_STEPS = 2  # the ViT, ViT-MoE, ResTv2 and MCTformer detectors
+# phase 14: the mobile backbones, e-YOLOX-s on the YOLOX path at full size
+E_YOLOX_CONFIG = MODEL_DIR / "e-yolox_s.yaml"
+# (name, backbone section, stage2-4 widths) of the NHWC-route detectors
+MOBILE_NHWC = (("mobilenetv3s", {"name": "mobilenetv3s"}, (24, 48, 96)),
+               ("mobilenetv3l", {"name": "mobilenetv3l"}, (40, 80, 160)),
+               ("shufflenetv2 with its SE",
+                {"name": "shufflenetv2", "use_se": True}, (104, 208, 416)))
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -1306,6 +1336,66 @@ def assert_finite_losses(torch, what: str, losses: dict) -> None:
             raise AssertionError(f"{what}: bad {k} {v}")
 
 
+def trained_ok(torch, what: str, losses: dict) -> None:
+    """A train step's losses: finite, and some anchor assigned."""
+    assert_finite_losses(torch, what, losses)
+    if not float(losses["proportion"]) > 0:
+        raise AssertionError(f"{what}: no anchor assigned")
+
+
+def served_ok(torch, what: str, preds, det, n_anchors: int,
+              conf: float) -> None:
+    """A request's decoded predictions and detections: their shapes,
+    finite values, and the card's postprocess equal to the CPU's on the
+    same predictions."""
+    from pl_yolo_tpu_torch.ops.nms import postprocess
+    if tuple(preds.shape) != (BATCH, n_anchors, 5 + NUM_CLASSES) \
+            or tuple(det.boxes.shape) != (BATCH, MAX_DET, 4):
+        raise AssertionError(f"{what}: shapes {tuple(preds.shape)}, "
+                             f"{tuple(det.boxes.shape)}")
+    for name, t in (("preds", preds), ("boxes", det.boxes),
+                    ("scores", det.scores)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+    ref = postprocess(preds.cpu(), conf_threshold=conf, iou_threshold=IOU,
+                      max_det=MAX_DET, pre_nms_topk=PRE_NMS_TOPK,
+                      device="cpu")
+    for field in ("valid", "classes", "scores", "boxes"):
+        if not torch.equal(getattr(det, field).cpu(), getattr(ref, field)):
+            raise AssertionError(f"{what}: card postprocess != CPU "
+                                 f"postprocess ({field})")
+
+
+def cli_epoch(config: Path, tag: str, seed: int) -> None:
+    """`python -m pl_yolo_tpu_torch -c config` on ANCHOR_CLI_IMAGES
+    synthetic JPEGs (B=16, 640^2) for one epoch and a validation; fails
+    unless it exits 0 with a finite loss and prints mAP."""
+    import yaml
+    from pl_yolo_tpu_torch.utils.config import load_config
+    note(f"{tag}: CLI")
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
+    try:
+        write_coco(tmp / "coco", ANCHOR_CLI_IMAGES, NUM_CLASSES, seed=seed)
+        _, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+        rc, lines = run_cli(["-c", str(config), "-d", str(tmp / "data.yaml"),
+                             "--max_epochs", "1", "--logger", "csv",
+                             "--output_dir", str(tmp / "runs"), "-n",
+                             f"{tag}_cli"], 300)
+        maps_line = [line for line in lines if line.startswith("mAP = ")]
+        epochs = epoch_lines(lines)
+        if rc != 0 or not maps_line or 0 not in epochs \
+                or not math.isfinite(epochs[0][2]):
+            raise AssertionError(f"{tag} CLI: exit {rc}:\n"
+                                 + "\n".join(lines[-30:]))
+        log(f"[{tag}] CLI `python -m pl_yolo_tpu_torch -c "
+            f"{config.relative_to(ROOT)}` on {ANCHOR_CLI_IMAGES} JPEGs: exit "
+            f"0, epoch 0 {epochs[0][1]:.1f} images/s, loss "
+            f"{epochs[0][2]:.3f}; '{maps_line[-1]}'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ota_recorder(torch):
     """A context that records the inputs of the YOLOv7 loss's top-k calls
     (the OTA's IoU and -cost rows) and of its assignment, as the loss hands
@@ -1336,7 +1426,6 @@ def ota_recorder(torch):
 def phase_anchor(torch, card: str, dev) -> dict:
     """Phase 11 (see the module docstring), on the card `dev`. Returns the
     top-k kernel's record on the YOLOv7 path for the `kernels` line."""
-    import yaml
     from pl_yolo_tpu_torch.data import augment
     from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
     from pl_yolo_tpu_torch.models.detector import build_model
@@ -1421,26 +1510,10 @@ def phase_anchor(torch, card: str, dev) -> dict:
 
     # what it served and how it trained
     for preds, det in served:
-        if tuple(preds.shape) != (BATCH, n_anchors, 5 + NUM_CLASSES) \
-                or tuple(det.boxes.shape) != (BATCH, MAX_DET, 4):
-            raise AssertionError(f"yolov7 serving shapes {tuple(preds.shape)}"
-                                 f", {tuple(det.boxes.shape)}")
-        for name, t in (("preds", preds), ("boxes", det.boxes),
-                        ("scores", det.scores)):
-            if not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"yolov7 serving: non-finite {name}")
-        ref = postprocess(preds.cpu(), conf_threshold=CONF, iou_threshold=IOU,
-                          max_det=MAX_DET, pre_nms_topk=PRE_NMS_TOPK,
-                          device="cpu")
-        for field in ("valid", "classes", "scores", "boxes"):
-            if not torch.equal(getattr(det, field).cpu(), getattr(ref, field)):
-                raise AssertionError(f"yolov7: card postprocess != CPU "
-                                     f"postprocess ({field})")
+        served_ok(torch, "yolov7 serving", preds, det, n_anchors, CONF)
     for what, hist in (("step", history), ("augmented step", aug_history)):
         for n, losses in enumerate(hist):
-            assert_finite_losses(torch, f"yolov7 {what} {n}", losses)
-            if not float(losses["proportion"]) > 0:
-                raise AssertionError(f"yolov7 {what} {n}: no anchor assigned")
+            trained_ok(torch, f"yolov7 {what} {n}", losses)
     if [tuple(x.shape) for x, _ in rows50] != [(BATCH, MAX_LABELS, MAX_LABELS * 27)] * 2 \
             or [tuple(x.shape) for x, _ in rows100] != [(BATCH, AUG_MAX_LABELS, AUG_MAX_LABELS * 27)] * 2:
         raise AssertionError("the OTA's top-k rows: "
@@ -1632,29 +1705,7 @@ def phase_anchor(torch, card: str, dev) -> dict:
                 f"{r['bound_ms'] * 1e3:.3f} us ({bound_by}) on {card}")
 
     # the CLI on a few JPEGs: one short epoch and a validation with mAP
-    note("yolov7: CLI")
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_yolov7_"))
-    try:
-        write_coco(tmp / "coco", ANCHOR_CLI_IMAGES, NUM_CLASSES, seed=3)
-        _, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
-        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
-        args = ["-c", str(V7_CONFIG), "-d", str(tmp / "data.yaml"),
-                "--max_epochs", "1", "--logger", "csv", "--output_dir",
-                str(tmp / "runs"), "-n", "yolov7_cli"]
-        rc, lines = run_cli(args, 300)
-        maps_line = [line for line in lines if line.startswith("mAP = ")]
-        epochs = epoch_lines(lines)
-        if rc != 0 or not maps_line or 0 not in epochs \
-                or not math.isfinite(epochs[0][2]):
-            raise AssertionError(f"yolov7 CLI: exit {rc}:\n"
-                                 + "\n".join(lines[-30:]))
-        log(f"[yolov7] CLI `python -m pl_yolo_tpu_torch -c "
-            f"{V7_CONFIG.relative_to(ROOT)}"
-            f"` on {ANCHOR_CLI_IMAGES} JPEGs: exit 0, epoch 0 "
-            f"{epochs[0][1]:.1f} images/s, loss {epochs[0][2]:.3f}; "
-            f"'{maps_line[-1]}'")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cli_epoch(V7_CONFIG, "yolov7", seed=3)
 
     # YOLOv5-s: the Focus stem's s2d route, and one request
     note("yolov5-s")
@@ -2133,7 +2184,6 @@ def phase_transformers(torch, card: str, dev) -> dict:
     top-k kernel's record on the Swin path's rows for the `kernels` line,
     its launches there, and each kernel's max |kernel - plain| on the
     path's own calls."""
-    import yaml
     from pl_yolo_tpu_torch.data import augment
     from pl_yolo_tpu_torch.models.detector import build_model
     from pl_yolo_tpu_torch.ops.cuda.topk import topk_plain, topk_rows
@@ -2159,21 +2209,6 @@ def phase_transformers(torch, card: str, dev) -> dict:
         return preds, postprocess(preds, conf_threshold=conf,
                                   iou_threshold=IOU, max_det=MAX_DET,
                                   pre_nms_topk=PRE_NMS_TOPK, device=dev)
-
-    def served_ok(what, preds, det, n_anchors):
-        if tuple(preds.shape) != (BATCH, n_anchors, 5 + NUM_CLASSES) \
-                or tuple(det.boxes.shape) != (BATCH, MAX_DET, 4):
-            raise AssertionError(f"{what}: shapes {tuple(preds.shape)}, "
-                                 f"{tuple(det.boxes.shape)}")
-        for name, t in (("preds", preds), ("boxes", det.boxes),
-                        ("scores", det.scores)):
-            if not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"{what}: non-finite {name}")
-
-    def trained_ok(what, losses):
-        assert_finite_losses(torch, what, losses)
-        if not float(losses["proportion"]) > 0:
-            raise AssertionError(f"{what}: no anchor assigned")
 
     def steps_of(model, cfg):
         optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
@@ -2227,17 +2262,10 @@ def phase_transformers(torch, card: str, dev) -> dict:
         raise AssertionError(f"the swin path skipped a kernel: "
                              f"{path_launches}")
     for preds, det in served:
-        served_ok("swin serving", preds, det, n_anchors)
-        ref = postprocess(preds.cpu(), conf_threshold=CONF_TRAINED,
-                          iou_threshold=IOU, max_det=MAX_DET,
-                          pre_nms_topk=PRE_NMS_TOPK, device="cpu")
-        for field in ("valid", "classes", "scores", "boxes"):
-            if not torch.equal(getattr(det, field).cpu(), getattr(ref, field)):
-                raise AssertionError(f"swin: card postprocess != CPU "
-                                     f"postprocess ({field})")
+        served_ok(torch, "swin serving", preds, det, n_anchors, CONF_TRAINED)
     for what, hist in (("step", history), ("augmented step", aug_history)):
         for n, losses in enumerate(hist):
-            trained_ok(f"swin {what} {n}", losses)
+            trained_ok(torch, f"swin {what} {n}", losses)
     rows = {key[0][0]: by for key, by in calls["topk_rows"].items()}
     if set(rows) != {(BATCH, MAX_LABELS, n_anchors),
                      (BATCH, AUG_MAX_LABELS, n_anchors)}:
@@ -2405,29 +2433,7 @@ def phase_transformers(torch, card: str, dev) -> dict:
     torch.cuda.empty_cache()
 
     # the CLI on a few JPEGs: one short epoch and a validation with mAP
-    note("swin: CLI")
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_swin_"))
-    try:
-        write_coco(tmp / "coco", ANCHOR_CLI_IMAGES, NUM_CLASSES, seed=5)
-        _, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
-        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
-        path = MODEL_DIR / "swin_tiny.yaml"
-        rc, lines = run_cli(["-c", str(path), "-d", str(tmp / "data.yaml"),
-                             "--max_epochs", "1", "--logger", "csv",
-                             "--output_dir", str(tmp / "runs"), "-n",
-                             "swin_cli"], 300)
-        maps_line = [line for line in lines if line.startswith("mAP = ")]
-        epochs = epoch_lines(lines)
-        if rc != 0 or not maps_line or 0 not in epochs \
-                or not math.isfinite(epochs[0][2]):
-            raise AssertionError(f"swin CLI: exit {rc}:\n"
-                                 + "\n".join(lines[-30:]))
-        log(f"[swin] CLI `python -m pl_yolo_tpu_torch -c "
-            f"{path.relative_to(ROOT)}` on {ANCHOR_CLI_IMAGES} JPEGs: exit "
-            f"0, epoch 0 {epochs[0][1]:.1f} images/s, loss "
-            f"{epochs[0][2]:.3f}; '{maps_line[-1]}'")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cli_epoch(MODEL_DIR / "swin_tiny.yaml", "swin", seed=5)
 
     # the other configs: a request each, and 2 augmented steps for the
     # ViT, ViT-MoE, ResTv2 and MCTformer detectors (MCTformer under AdamW)
@@ -2448,7 +2454,7 @@ def phase_transformers(torch, card: str, dev) -> dict:
         with torch.inference_mode():
             preds, det = infer(m, requests[1])
         assert_launched(before, {"nms_suppress": 1}, f"{name} request")
-        served_ok(f"{name} request", preds, det, n_a)
+        served_ok(torch, f"{name} request", preds, det, n_a, CONF)
         with torch.inference_mode():
             ms = cuda_ms(torch, lambda: infer(m, requests[1]), 3, warmup=1)
         line = (f"[time] {name}: infer+NMS B={BATCH} {ms:.3f} ms, "
@@ -2466,7 +2472,7 @@ def phase_transformers(torch, card: str, dev) -> dict:
                 losses.append(step(state, aug_images, labels, generator=gen))
                 assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
                                 f"{name} augmented step {n}")
-                trained_ok(f"{name} augmented step {n}", losses[-1])
+                trained_ok(torch, f"{name} augmented step {n}", losses[-1])
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             step_ms = cuda_ms(torch, lambda: step(
@@ -2485,6 +2491,267 @@ def phase_transformers(torch, card: str, dev) -> dict:
     return {"launches": path_launches["topk_rows"],
             "max_abs_err": {name: err for name, (err, _) in checks.items()},
             "records": rec}
+
+
+def mobile_configs(load_config, validate_model_config) -> list:
+    """The other mobile detectors of phase 14: (name, cfg, s2d route).
+    e-yolox_{tiny,m,l,x} as copied; `cspmobilenext` in e-yolox_s.yaml's
+    place of ECMNet (its stages as wide); MobileNetV3-S/L and ShuffleNetV2
+    (with its SE) in yolox_s.yaml's place of CSPDarknet, with a CSP-PAFPN
+    neck and decoupled head as wide as their stage2-4 maps."""
+    def config(name):
+        path = MODEL_DIR / f"{name}.yaml"
+        return validate_model_config(load_config(path), str(path))
+    out = [(name, config(name), True)
+           for name in ("e-yolox_tiny", "e-yolox_m", "e-yolox_l",
+                        "e-yolox_x")]
+    csp = config("e-yolox_s")
+    csp["backbone"]["name"] = "cspmobilenext"
+    out.append(("cspmobilenext (e-yolox_s widths)", csp, True))
+    for name, backbone, widths in MOBILE_NHWC:
+        cfg = config("yolox_s")
+        cfg["backbone"] = dict(backbone)
+        cfg["neck"]["channels"] = list(widths)
+        cfg["head"]["channels"] = list(widths)
+        out.append((name, cfg, False))
+    return out
+
+
+def phase_mobile(torch, card: str, dev) -> dict:
+    """Phase 14 (see the module docstring), on the card `dev`. Returns the
+    e-YOLOX path's launches of each kernel and each kernel's max |kernel -
+    plain| on the path's own calls, for the `kernels` line."""
+    from pl_yolo_tpu_torch.data import augment
+    from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.ops.cuda.topk import topk_rows
+    from pl_yolo_tpu_torch.ops.nms import postprocess
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.utils.config import (load_config,
+                                                validate_model_config)
+    t_phase = time.perf_counter()
+    record = path_call_recorder(torch)
+    torch.backends.cudnn.allow_tf32 = False  # as phase 4 left them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's autotuning (on since phase 9) times every algorithm for each
+    # new conv shape: the depthwise convs of eight new models made it most
+    # of this phase's time (294 s, against 108 s without, on an NVIDIA
+    # H100 80GB HBM3 at 700 W); the phase runs without it and leaves it as
+    # it found it
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+
+    def config(dtype="keep"):
+        cfg = validate_model_config(load_config(E_YOLOX_CONFIG),
+                                    str(E_YOLOX_CONFIG))
+        if dtype != "keep":
+            cfg["dtype"] = dtype
+        return cfg
+
+    def infer(m, x):
+        preds = m.loss.eval_decode(m.module(x))
+        return preds, postprocess(preds, conf_threshold=CONF_TRAINED,
+                                  iou_threshold=IOU, max_det=MAX_DET,
+                                  pre_nms_topk=PRE_NMS_TOPK, device=dev)
+
+    def s2d_apply(module, x):
+        with stem_input_s2d():
+            return module(x)
+
+    def aug_step_of(model, s2d):
+        return make_train_step(
+            model.loss.train_loss, apply_fn=s2d_apply if s2d else None,
+            augment_fn=augment.make_augment_fn(aug_cfg, out_s2d=s2d))
+
+    cfg = config()
+    n_anchors = sum((SIZE // s) ** 2 for s in cfg["loss"]["stride"])
+    model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
+    if not getattr(type(model.module.backbone), "STEM_S2D", False):
+        raise AssertionError("ECMNet lost its Focus stem's s2d route")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    requests = [torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+                * 255.0 for _ in range(REQUESTS)]
+    labels = train_labels(torch, dev, BATCH)
+    aug_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS)
+    aug_images = bench_images(torch, dev, BATCH, seed=5)
+
+    # the e-YOLOX path: serving at conf 1e-6 (the NMS takes its full 1024
+    # candidates whatever the random head scores), then training without
+    # and with augmentation on the s2d route, its kernel launches counted
+    # from 0 and its kernel calls recorded
+    note("e-yolox: serving")
+    reset_launch_counts()
+    served, history, aug_history = [], [], []
+    with record() as calls:
+        with torch.inference_mode():
+            for x in requests:
+                before = launch_counts()
+                served.append(infer(model, x))
+                assert_launched(before, {"nms_suppress": 1},
+                                "e-yolox request")
+        note("e-yolox: training")
+        optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                       total_steps=TOTAL_STEPS)
+        state = TrainState.create(model.module, optimizer)
+        step = make_train_step(model.loss.train_loss)
+        aug_step = aug_step_of(model, True)
+        for n in range(TRAIN_STEPS):
+            before = launch_counts()
+            history.append(step(state, requests[0], labels))
+            assert_launched(before, {"topk_rows": 2}, f"e-yolox step {n}")
+        for n in range(AUG_STEPS + 1):
+            before = launch_counts()
+            aug_history.append(aug_step(state, aug_images, labels,
+                                        generator=gen,
+                                        aug_enable=n < AUG_STEPS))
+            assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                            f"e-yolox augmented step {n}")
+    torch.cuda.synchronize()
+    path_launches = launch_counts()
+    if not all(path_launches[n] > 0 for n in GATE_KERNELS):
+        raise AssertionError(f"the e-yolox path skipped a kernel: "
+                             f"{path_launches}")
+    for preds, det in served:
+        served_ok(torch, "e-yolox serving", preds, det, n_anchors,
+                  CONF_TRAINED)
+    for what, hist in (("step", history), ("augmented step", aug_history)):
+        for n, losses in enumerate(hist):
+            trained_ok(torch, f"e-yolox {what} {n}", losses)
+    rows = {key[0][0]: by for key, by in calls["topk_rows"].items()}
+    if set(rows) != {(BATCH, MAX_LABELS, n_anchors),
+                     (BATCH, AUG_MAX_LABELS, n_anchors)}:
+        raise AssertionError(f"the e-yolox path's top-k rows: {list(rows)}")
+    b = cfg["backbone"]
+    log(f"[mobile] e-yolox_s.yaml {b['name']} channels {b['channels']} "
+        f"depths {b['depths']}, neck {cfg['neck']['name']} "
+        f"{cfg['neck']['channels']}, head {cfg['head']['channels']}, "
+        f"{cfg['dtype']}: {REQUESTS} requests of {BATCH}x{SIZE}x{SIZE} "
+        f"through eval_decode and postprocess at conf {CONF_TRAINED} "
+        f"(shapes, finiteness, card == CPU postprocess; kept "
+        f"{[int(d.valid.sum()) for _, d in served]}); {TRAIN_STEPS} steps "
+        f"(M={MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in history)
+        + f"; {AUG_STEPS}+1 augmented steps (s2d, M={AUG_MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in aug_history)
+        + f"; proportion {float(history[-1]['proportion']):.3f} / "
+        f"{float(aug_history[-2]['proportion']):.3f}; launches on the path "
+        f"{path_launches}")
+
+    # the kernels on the path's own calls, bit for bit; the top-k also
+    # against torch.topk
+    checks = path_calls_equal_plain(torch, calls, "the e-yolox path")
+    for shape, by in rows.items():
+        for args, _ in by:
+            got = topk_rows(*args)
+            if not torch.equal(got, torch.topk(args[0], args[1],
+                                               dim=-1).values):
+                raise AssertionError(f"topk_rows != torch.topk on the "
+                                     f"e-yolox path's rows {shape}")
+    log(f"[mobile] kernel == plain (bit for bit) on the path's own calls: "
+        f"{describe_path_checks(checks)}; topk_rows == torch.topk on each "
+        f"recorded row set, on {card}")
+    del calls, rows
+
+    # card against CPU: the fp32 head maps at B=1 (TF32 off)
+    note("e-yolox: card against CPU")
+    x1 = requests[0][:1]
+    fp32 = build_model(config(None), NUM_CLASSES, device=dev, seed=0)
+    with torch.inference_mode():
+        maps_card = [m.cpu() for m in fp32.module(x1)]
+        cpu_model = build_model(config(None), NUM_CLASSES, device="cpu",
+                                seed=0)
+        maps_cpu = cpu_model.module(x1.cpu())
+    scale = max(1.0, max(float(m.abs().max()) for m in maps_cpu))
+    err = max(float((a - b).abs().max()) for a, b in zip(maps_card, maps_cpu))
+    log(f"[mobile] e-yolox_s fp32 head maps card vs CPU at B=1: max abs err "
+        f"{err:.3e} (max |map| {scale:.3f}, tolerance {MAPS_TOL} x scale)")
+    if not err <= MAPS_TOL * scale:
+        raise AssertionError(f"e-yolox_s fp32 head maps differ: {err}")
+    del fp32, cpu_model
+
+    # times, on a state whose learning rate stays near 0 (see phase 9)
+    note("e-yolox: times")
+    torch.cuda.empty_cache()
+    model.module.eval()
+    with torch.inference_mode():
+        infer_ms = cuda_ms(torch, lambda: infer(model, requests[0]), 10)
+        infer_busy, _ = device_profile(torch, lambda: infer(
+            model, requests[0]), 3)
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                   total_steps=10 ** 9)
+    state = TrainState.create(model.module, optimizer)
+    timed = {}
+    for what, fn in (("un-augmented", lambda: step(state, requests[0],
+                                                   labels)),
+                     ("augmented (s2d)", lambda: aug_step(
+                         state, aug_images, labels, generator=gen))):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, fn, iters=6, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, top = device_profile(torch, fn, 2)
+        timed[what] = (ms, busy, peak, top)
+    log(f"[time] e-yolox_s infer+NMS (conf {CONF_TRAINED}) bf16 B={BATCH}: "
+        f"{infer_ms:.3f} ms/batch, {BATCH * 1000.0 / infer_ms:.1f} images/s,"
+        f" device busy {infer_busy:.3f} ms (idle share "
+        f"{1.0 - infer_busy / infer_ms:.3f}) on {card}")
+    for what, (ms, busy, peak, top) in timed.items():
+        log(f"[time] e-yolox_s {what} train step B={BATCH}: {ms:.3f} "
+            f"ms/step, {BATCH * 1000.0 / ms:.1f} images/s, device busy "
+            f"{busy:.3f} ms (idle share {1.0 - busy / ms:.3f}), peak "
+            f"device memory {peak:.2f} GiB on {card}; top kernels, ms "
+            f"a step: " + "; ".join(f"{t:.4f} {name[:48]}"
+                                    for name, t in top[:6]))
+    del state, optimizer, step, aug_step, model
+    torch.cuda.empty_cache()
+
+    # the CLI on a few JPEGs: one short epoch and a validation with mAP
+    cli_epoch(E_YOLOX_CONFIG, "mobile", seed=6)
+
+    # the other mobile detectors: a request and 2 augmented steps each, on
+    # the route the trainer would take (s2d behind a Focus stem, else NHWC)
+    for name, c, s2d in mobile_configs(load_config, validate_model_config):
+        note(name)
+        m = build_model(c, NUM_CLASSES, device=dev, seed=0)
+        if bool(getattr(type(m.module.backbone), "STEM_S2D", False)) != s2d:
+            raise AssertionError(f"{name}: the stem route is not {s2d}")
+        before = launch_counts()
+        with torch.inference_mode():
+            preds, det = infer(m, requests[1])
+        assert_launched(before, {"nms_suppress": 1}, f"{name} request")
+        served_ok(torch, f"{name} request", preds, det, n_anchors,
+                  CONF_TRAINED)
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: infer(m, requests[1]), 3, warmup=1)
+        optimizer, _ = build_optimizer(m.module, c["optimizer"],
+                                       total_steps=TOTAL_STEPS)
+        state = TrainState.create(m.module, optimizer)
+        step = aug_step_of(m, s2d)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for n in range(OTHER_AUG_STEPS):
+            before = launch_counts()
+            losses.append(step(state, aug_images, labels, generator=gen))
+            assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                            f"{name} augmented step {n}")
+            trained_ok(torch, f"{name} augmented step {n}", losses[-1])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = cuda_ms(torch, lambda: step(state, aug_images, labels,
+                                              generator=gen), 3, warmup=0)
+        log(f"[time] {name} ({'s2d' if s2d else 'NHWC'} route): infer+NMS "
+            f"B={BATCH} {ms:.3f} ms, {BATCH * 1000.0 / ms:.1f} images/s; "
+            f"{OTHER_AUG_STEPS} augmented steps, loss "
+            + " ".join(f"{float(h['loss']):.4f}" for h in losses)
+            + f", peak device memory {peak:.2f} GiB; then {step_ms:.1f} ms "
+            f"a step, {BATCH * 1000.0 / step_ms:.1f} images/s on {card}")
+        del m, preds, det, state, optimizer, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = autotune
+    log(f"[mobile] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {n: path_launches[n] for n in kernel_wrappers()},
+            "max_abs_err": {name: err for name, (err, _) in checks.items()}}
 
 
 def main() -> int:
@@ -3547,20 +3814,31 @@ def main() -> int:
                 for name in ("IoU", "-cost")]
         return sum(r[key] for r in recs) / len(recs)
 
+    # 14. the mobile backbones: e-YOLOX's launches are added to the YOLOX
+    # path's, and given alone as "launches_e_yolox_s"
+    note("mobile backbones")
+    mobile = phase_mobile(torch, card, dev)
+    max_err = max(max_err, mobile["max_abs_err"]["nms_suppress"])
+    topk_err = max(topk_err, mobile["max_abs_err"]["topk_rows"])
+    warp_err = max(warp_err, mobile["max_abs_err"]["mosaic_warp"])
+    e_yolox = mobile["launches"]
+
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "nms_suppress", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/nms_pallas.py:29",
-        "launches": nms_launches, "max_abs_err": max_err,
+        "launches": nms_launches + e_yolox["nms_suppress"],
+        "launches_e_yolox_s": e_yolox["nms_suppress"], "max_abs_err": max_err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None}, {
         "name": "topk_rows", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
-        "launches": topk_launches, "max_abs_err": topk_err,
+        "launches": topk_launches + e_yolox["topk_rows"],
+        "launches_e_yolox_s": e_yolox["topk_rows"], "max_abs_err": topk_err,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": topk_recs["-cost M=50"]["bound_ms"],
         "bound_by": topk_recs["-cost M=50"]["bound_by"],
@@ -3568,7 +3846,8 @@ def main() -> int:
         "name": "mosaic_warp", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/mosaic_warp.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/mosaic_pallas.py:71",
-        "launches": warp_launches, "max_abs_err": warp_err,
+        "launches": warp_launches + e_yolox["mosaic_warp"],
+        "launches_e_yolox_s": e_yolox["mosaic_warp"], "max_abs_err": warp_err,
         "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
         "bound_ms": warp_mean("bound_ms"),
         "bound_by": warp_recs["mosaic (K=4)"]["bound_by"],
@@ -3576,7 +3855,8 @@ def main() -> int:
         "name": "simota_assign", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/simota_assign.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/simota_pallas.py:49",
-        "launches": simota_launches, "max_abs_err": simota_err,
+        "launches": simota_launches + e_yolox["simota_assign"],
+        "launches_e_yolox_s": e_yolox["simota_assign"], "max_abs_err": simota_err,
         "ms": simota_mean("ms"), "plain_ms": simota_mean("plain_ms"),
         "bound_ms": simota_mean("bound_ms"),
         "bound_by": simota_recs["M=100 augmented step"]["bound_by"],

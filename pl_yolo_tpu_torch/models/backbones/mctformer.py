@@ -22,9 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...layers.blocks import LayerNorm, SameConv2d
+from ...ops.resize import resize_bicubic
 from .vit import (_gelu, apply_pyramid, init_tower_, layer_norm,
-                  register_tower, resize_bicubic, simple_pyramid,
-                  tower_layer, truncated_normal_)
+                  register_tower, simple_pyramid, tower_layer,
+                  truncated_normal_)
 
 
 def mct_block(p: dict, x: torch.Tensor, num_heads: int

@@ -2,10 +2,10 @@
 of `pl_yolo_tpu/models/backbones/vit.py`.
 
 A plain ViT encoder over 16x16 patches with a position embedding resized
-from its 14x14 grid (JAX's bicubic `jax.image.resize`, rebuilt here), then
-a simple pyramid: a stride-2 transposed conv up to stride 8, the stride-16
-map itself, a stride-2 conv down to stride 32. NCHW in and out, tokens in
-between.
+from its 14x14 grid (JAX's bicubic `jax.image.resize`, rebuilt in
+`ops/resize.py`), then a simple pyramid: a stride-2 transposed conv up to
+stride 8, the stride-16 map itself, a stride-2 conv down to stride 32.
+NCHW in and out, tokens in between.
 
 The L blocks keep one stacked parameter tree, as the JAX package's scanned
 tower does: `blocks_<name>` parameters with a leading axis L, named after
@@ -22,55 +22,13 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
 from ...layers.blocks import LayerNorm, SameConv2d, get_activation
-from ...ops.constant import array_constant
+from ...ops.resize import resize_bicubic
 
 _gelu = get_activation("gelu")  # jax.nn.gelu: the tanh approximation
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """The Keys cubic kernel, a = -0.5, on |distance| x."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
-
-
-def bicubic_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[in, out] fp32 weights of `jax.image.resize(..., "bicubic")` along one
-    axis: half-pixel centres, the kernel widened by in/out when
-    downsampling (antialias), each column normalised to sum 1, and columns
-    whose sample falls outside the input zeroed (jax/_src/image/scale.py,
-    `compute_weight_mat`)."""
-    scale = np.float32(out_size) / np.float32(in_size)
-    inv_scale = np.float32(1.0) / scale
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample_f = ((np.arange(out_size, dtype=np.float32) + 0.5) * inv_scale
-                - 0.5).astype(np.float32)
-    x = (np.abs(sample_f[None, :]
-                - np.arange(in_size, dtype=np.float32)[:, None])
-         / kernel_scale).astype(np.float32)
-    weights = _keys_cubic(x)
-    total = np.sum(weights, axis=0, keepdims=True)
-    eps = float(np.finfo(np.float32).eps)
-    weights = np.where(np.abs(total) > 1000.0 * eps,
-                       weights / np.where(total != 0, total, 1), 0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], weights, 0).astype(np.float32)
-
-
-def resize_bicubic(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, h, w, C] as `jax.image.resize(x, (B, h, w, C),
-    "bicubic")`: two small matmuls with the per-axis weights, so the
-    result is differentiable in x (torch's bicubic uses a = -0.75 and no
-    antialias, and is not this function)."""
-    wh = array_constant(bicubic_weights, x.shape[1], h, device=x.device)
-    ww = array_constant(bicubic_weights, x.shape[2], w, device=x.device)
-    x = torch.einsum("hH,bhwc->bHwc", wh, x)
-    return torch.einsum("wW,bHwc->bHWc", ww, x)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

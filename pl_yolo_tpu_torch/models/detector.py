@@ -1,7 +1,9 @@
 """One-stage detector assembly + registry, port of
 `pl_yolo_tpu/models/detector.py` for the YOLOX family, the anchor-based
-YOLOv7 / YOLOv5 / YOLOv3 families and the transformer backbones (Swin,
-SwinV2, ViT with its MoE FFN, ResTv2, MCTformer; `neck: none`).
+YOLOv7 / YOLOv5 / YOLOv3 families, the transformer backbones (Swin,
+SwinV2, ViT with its MoE FFN, ResTv2, MCTformer; `neck: none`) and the
+mobile backbones (e-YOLOX's ECMNet with the AL-PAFPN neck, CSPMobileNext,
+MobileNetV3-S/L, ShuffleNetV2).
 
 `build_model(cfg, num_classes)` composes backbone -> neck -> head from the
 YAML config sections and returns a `DetectionModel`: the torch module, its
@@ -27,7 +29,9 @@ from ..layers.blocks import compute_dtype
 from .backbones.cspdarknet import CSPDarkNet
 from .backbones.eelan import EELAN
 from .backbones.mctformer import MCTformer
+from .backbones.mobile import CSPMobileNext, ECMNet, MobileNetV3
 from .backbones.restv2 import ResTV2
+from .backbones.shufflenetv2 import ShuffleNetV2
 from .backbones.swin import SwinTransformer
 from .backbones.swinv2 import SwinTransformerV2
 from .backbones.vit import VisionTransformer
@@ -42,6 +46,7 @@ from .losses.yolov7 import (DEFAULT_V7_ANCHORS, yolov7_eval_decode,
                             yolov7_loss)
 from .losses.yolox import yolox_eval_decode, yolox_loss
 from .necks.csppafpn import CSPPAFPN
+from .necks.pafpn_al import AL_PAFPN
 from .necks.yolov7_neck import YOLOv7NECK
 
 
@@ -160,6 +165,52 @@ def _simple_head(cfg: dict, num_classes: int,
     )
 
 
+def _staged_mobile(cls):
+    def make(cfg: dict, dtype, input_size) -> nn.Module:
+        return cls(
+            depths=tuple(cfg["depths"]),
+            channels=tuple(cfg["channels"]),
+            outputs=tuple(cfg["outputs"]),
+            norm=cfg.get("norm", "bn"),
+            act=cfg.get("act", "silu"),
+            dtype=dtype,
+        )
+    return make
+
+
+def _shufflenetv2(cfg: dict, dtype, input_size) -> nn.Module:
+    return ShuffleNetV2(
+        channels=tuple(cfg.get("channels", (36, 104, 208, 416))),
+        outputs=tuple(cfg.get("outputs", ("stage2", "stage3", "stage4"))),
+        act=cfg.get("act", "hswish"),
+        use_se=bool(cfg.get("use_se", False)),
+        dtype=dtype,
+    )
+
+
+def _mobilenetv3(size: str):
+    # reads only `outputs`, as the JAX package: the table sets the rest
+    def make(cfg: dict, dtype, input_size) -> nn.Module:
+        return MobileNetV3(
+            size=size,
+            outputs=tuple(cfg.get("outputs",
+                                  ("stage2", "stage3", "stage4"))),
+            dtype=dtype,
+        )
+    return make
+
+
+def _al_pafpn(cfg: dict, feat_channels: Sequence[int], dtype) -> nn.Module:
+    return AL_PAFPN(
+        depths=tuple(cfg["depths"]),
+        in_channels=tuple(cfg["channels"]),
+        norm=cfg.get("norm", "bn"),
+        act=cfg.get("act", "silu"),
+        feat_channels=tuple(feat_channels),
+        dtype=dtype,
+    )
+
+
 def _swin(cfg: dict, dtype, input_size, v2: bool = False) -> nn.Module:
     klass = SwinTransformerV2 if v2 else SwinTransformer
     return klass(
@@ -211,6 +262,11 @@ def _mctformer(cfg: dict, dtype, input_size) -> nn.Module:
 BACKBONES: dict[str, Callable[..., nn.Module]] = {
     "cspdarknet": _cspdarknet,
     "eelan": _eelan,
+    "cspmobilenext": _staged_mobile(CSPMobileNext),
+    "ecmnet": _staged_mobile(ECMNet),
+    "shufflenetv2": _shufflenetv2,
+    "mobilenetv3s": _mobilenetv3("small"),
+    "mobilenetv3l": _mobilenetv3("large"),
     "swin_transformer": _swin,
     "swin_transformerv2": functools.partial(_swin, v2=True),
     "vision_transformer": _vit,
@@ -219,6 +275,7 @@ BACKBONES: dict[str, Callable[..., nn.Module]] = {
 }
 NECKS: dict[str, Callable[..., nn.Module]] = {
     "csppafpn": _csppafpn,
+    "al_pafpn": _al_pafpn,
     "yolov7neck": _yolov7neck,
     "none": lambda cfg, feat_channels, dtype: NoNeck(feat_channels),
 }

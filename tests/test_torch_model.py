@@ -138,8 +138,8 @@ def test_postprocess_matches_jax(slice_outputs, source, mode):
 
 def test_unknown_registry_name_raises():
     cfg = _tiny_cfg()
-    cfg["neck"]["name"] = "al_pafpn"  # not ported yet (ROADMAP item 10)
-    with pytest.raises(KeyError, match="Unknown neck 'al_pafpn'"):
+    cfg["neck"]["name"] = "bifpn"  # a name neither package registers
+    with pytest.raises(KeyError, match="Unknown neck 'bifpn'"):
         build_model(cfg, NUM_CLASSES, device="cpu")
 
 

@@ -493,8 +493,8 @@ def test_config_copy_equals_the_jax_packages(path):
 
 def test_all_yolox_configs_are_copied():
     """The model YAMLs the port builds: the YOLOX family (with DropBlock),
-    the anchor families (YOLOv7, YOLOv5-s) and the transformer backbones
-    (Swin, ViT with and without MoE, ResTv2, MCTformer)."""
+    the anchor families (YOLOv7, YOLOv5-s), the transformer backbones
+    (Swin, ViT with and without MoE, ResTv2, MCTformer) and e-YOLOX."""
     names = {p.name for p in (CONFIG_DIR / "model").glob("*.yaml")}
     assert names == (
         {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x",
@@ -505,4 +505,5 @@ def test_all_yolox_configs_are_copied():
                                  "yolov5_s")}
         | {f"{n}.yaml" for n in ("swin_tiny", "swin_small", "swin_base",
                                  "swin_large", "vit_tiny", "vit_tiny_moe",
-                                 "restv2_tiny", "mctformer_small")})
+                                 "restv2_tiny", "mctformer_small")}
+        | {f"e-yolox_{s}.yaml" for s in ("tiny", "s", "m", "l", "x")})

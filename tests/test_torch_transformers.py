@@ -52,6 +52,7 @@ from pl_yolo_tpu_torch.models.backbones import swin as tswin
 from pl_yolo_tpu_torch.models.backbones import swinv2 as tswin2
 from pl_yolo_tpu_torch.models.backbones import vit as tvit
 from pl_yolo_tpu_torch.models.detector import build_model
+from pl_yolo_tpu_torch.ops import resize as tresize
 from pl_yolo_tpu_torch.train.optim import build_optimizer
 from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
 from pl_yolo_tpu_torch.utils.config import CONFIG_DIR, load_config
@@ -292,7 +293,7 @@ def test_bicubic_position_embedding_matches_jax_image_resize(out):
     (_, want), wgrad = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
         jnp.asarray(pos))
     p = torch.from_numpy(pos).requires_grad_()
-    got = tvit.resize_bicubic(p, out, out)
+    got = tresize.resize_bicubic(p, out, out)
     (got * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                **TOL)
@@ -300,7 +301,7 @@ def test_bicubic_position_embedding_matches_jax_image_resize(out):
     # the weights equal jax's eager `compute_weight_mat` (the jitted resize
     # computes them with ~5e-7 of rounding, and lands ~4e-6 from float64
     # upsampling); the port's product is within 1e-6 of the float64 one
-    w = tvit.bicubic_weights(14, out)
+    w = tresize.bicubic_weights(14, out)
     np.testing.assert_array_equal(w, np.asarray(jax_weight_mat(
         14, out, jnp.float32(out / 14), jnp.float32(0.0),
         jax_keys_cubic, True)))
