@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's YOLOX-s serving and training paths, its anchor
 families (YOLOv7, YOLOv5-s, YOLOv3), its transformer backbones (Swin,
-SwinV2, ViT, ViT-MoE, ResTv2, MCTformer) and its mobile backbones
-(e-YOLOX, CSPMobileNext, MobileNetV3-S/L, ShuffleNetV2), on one CUDA card.
+SwinV2, ViT, ViT-MoE, ResTv2, MCTformer), its mobile backbones (e-YOLOX,
+CSPMobileNext, MobileNetV3-S/L, ShuffleNetV2) and its deploy path (a
+trained checkpoint exported and served), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,6 +13,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      (four: NMS suppression, row top-k, mosaic warp, fused SimOTA
      assignment), all `nvcc`s at once, with ptxas's registers and spills;
   3. kernels: each kernel against its plain PyTorch version on the card (the
+     NMS also on boxes with infinite and NaN coordinates, as an overflowing
+     decode gives them; the
      row top-k also against `torch.topk`, on the rows SimOTA sends and on
      rows a lane-split pass can get wrong: ascending, descending, all
      equal, the top k in one lane's share, odd A, k = 1..16; the mosaic
@@ -164,6 +167,28 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      `_m`, `_l`, `_x` and a CSPMobileNext detector (s2d route), and of
      MobileNetV3-S, MobileNetV3-L and ShuffleNetV2 with its SE, each with
      a CSP-PAFPN neck and decoupled head as wide as its maps (NHWC route).
+ 15. deploy: a trained checkpoint (4 bf16 steps of `yolox_s.yaml` at full
+     width, 640^2, B=16, through the trainer's step on 4 batches of scene
+     images, the rectangles phase 10 draws, with their labels; saved in
+     the trainer's layout: EMA weights, BN statistics) through every
+     exporter of `pl_yolo_tpu_torch.deploy.export`: TorchScript (`.pt`,
+     fp32, BN folded, traced on the card), the served program (`.pt2`:
+     `torch.export` of forward, decode and `postprocess` in bf16 with the
+     NMS as the registered operator) exported on the card, and through
+     `python -m pl_yolo_tpu_torch.tools.export --device cpu` on the host
+     and moved to the card; 4 requests of [16,640,640,3] scene images at
+     conf 0 (all 1024 candidates valid) through each on the card, the NMS
+     launches counted from 0 for each (1 a request, no other kernel); the
+     `.pt2`'s own NMS calls, recorded where the operator makes them, run again
+     against `suppress_plain`, bit for bit; the `.pt` against the eager
+     fp32 predictions and both `.pt2` against the eager bf16 served
+     function (valid and classes equal, boxes and scores within MAPS_TOL
+     of their scale); the npz (numpy runtime) and ONNX (numpy ONNX
+     runtime) artifacts on the host at one 256^2 image against the card's
+     fp32 forward (MAPS_TOL); infer+NMS images/s of the `.pt` +
+     `postprocess`, both `.pt2`, the eager fp32 and bf16 models, in turns;
+     the operator's cost a call over the wrapper's; the NMS kernel's time
+     on the `.pt2`'s input; each step's seconds and the phase's time.
 
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
@@ -172,8 +197,10 @@ before the card's line. The line
 before the last is the `kernels` JSON record (the top-k kernel three
 times: on the YOLOX path's rows, on the YOLOv7 OTA's and on the Swin
 path's; the four kernels' `launches` add the e-YOLOX path's to the
-YOLOX path's, which `launches_e_yolox_s` gives alone), and the last line
-is
+YOLOX path's, which `launches_e_yolox_s` gives alone, and the deploy
+path's, which `launches_deploy` gives alone, with the kernel's times on
+the `.pt2`'s input as `ms_deploy`, `plain_ms_deploy`, `bound_ms_deploy`),
+and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
 """
@@ -290,6 +317,17 @@ MOBILE_NHWC = (("mobilenetv3s", {"name": "mobilenetv3s"}, (24, 48, 96)),
                ("mobilenetv3l", {"name": "mobilenetv3l"}, (40, 80, 160)),
                ("shufflenetv2 with its SE",
                 {"name": "shufflenetv2", "use_se": True}, (104, 208, 416)))
+# phase 15: deploy, from a checkpoint of DEPLOY_STEPS steps, one on each of
+# DEPLOY_BATCHES batches of scene images. Phase 10's fit checkpoint (12
+# steps at its horizon of 12) is degenerate: its eval maps are so large
+# that its decode overflows exp and fp32 rounding alone moves its scores;
+# after more steps in the warm-up the running BN statistics also trail
+# the weights until the eval maps overflow. At conf 0 every candidate is
+# valid: the NMS takes its full 1024
+DEPLOY_STEPS = DEPLOY_BATCHES = 4
+DEPLOY_CONF = 0.0
+DEPLOY_HOST_SIZE = 256  # the npz and ONNX runtimes' image, on the host
+DEPLOY_ROUNDS = 3  # the serving routes timed in turns
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -416,7 +454,34 @@ def nms_cases(torch, dev):
     cases.append(("chain", chain, ones, IOU))
     same = torch.tensor([10.0, 20.0, 110.0, 220.0]).repeat(2, PRE_NMS_TOPK, 1)
     cases.append(("identical", same.contiguous(), ones, IOU))
+    # a decode whose exp overflowed: boxes of infinite width or height,
+    # and NaN coordinates; an inf - inf union must suppress nothing
+    boxes, valid = rand_boxes(2, 256, 4)
+    boxes[:, ::4, 0], boxes[:, ::4, 2] = -math.inf, math.inf
+    boxes[:, 1::8, 3] = math.inf
+    boxes[:, 2::16, 1] = math.nan
+    cases.append(("non-finite coordinates", boxes, valid, IOU))
     return [(n, b.to(dev), v.to(dev), t) for n, b, v, t in cases]
+
+
+def nms_record(torch, boxes, valid) -> dict:
+    """The NMS kernel on one input at IOU: its time and its plain version's
+    by CUDA events, and its bound (14 fp32 operations a valid pair, or the
+    bytes of boxes and valid in and alive out)."""
+    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import (nms_suppress,
+                                                         suppress_plain)
+    b, k = valid.shape
+    n_valid = valid.sum(1).double()
+    ops = NMS_OPS_PER_PAIR * float((n_valid * (n_valid - 1) / 2).sum())
+    nbytes = boxes.numel() * 4 + valid.numel() + b * k
+    bound = {"operations": ops / PEAK_FP32_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    bound_by = max(bound, key=bound.get)
+    ms = cuda_ms(torch, lambda: nms_suppress(boxes, valid, IOU), iters=50)
+    plain = cuda_ms(torch, lambda: suppress_plain(boxes, valid, IOU),
+                    iters=10)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound[bound_by],
+                bound_by=bound_by, n_valid=int(n_valid.sum()))
 
 
 def cuda_ms_each(torch, setup, fn, iters: int, warmup: int = 2) -> float:
@@ -915,28 +980,57 @@ def l2_cold(torch, fn):
     return run
 
 
-def write_coco(root: Path, n: int, num_classes: int, seed: int = 0) -> None:
-    """A COCO set under `root`: `n` JPEGs of 480x640 on a plain ground, each
-    with 1-5 filled rectangles of random classes, and their annotations."""
-    import numpy as np
+def draw_scene(rng, num_classes: int):
+    """An image of 480x640 on a plain ground with 1-5 filled rectangles of
+    random classes: (PIL image, [(x, y, w, h, class id from 1)])."""
     from PIL import Image, ImageDraw
+    h, w = JPEG_HW
+    img = Image.new("RGB", (w, h), tuple(rng.integers(0, 256, 3).tolist()))
+    draw = ImageDraw.Draw(img)
+    boxes = []
+    for _ in range(int(rng.integers(1, 6))):
+        bw, bh = int(rng.integers(24, w // 2)), int(rng.integers(24, h // 2))
+        x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+        draw.rectangle([x, y, x + bw, y + bh],
+                       fill=tuple(rng.integers(0, 256, 3).tolist()))
+        boxes.append((x, y, bw, bh, int(rng.integers(1, num_classes + 1))))
+    return img, boxes
+
+
+def scene_batch(torch, dev, n: int, size: int, seed: int):
+    """n images of `draw_scene`, letterboxed as the serving tools letterbox
+    an image, and their labels, on `dev`: ([n, size, size, 3] float 0-255,
+    [n, MAX_LABELS, 5] class, cx, cy, w, h in pixels)."""
+    import numpy as np
+    from pl_yolo_tpu_torch.data.datasets import letterbox_image
+    rng = np.random.default_rng(seed)
+    images = np.zeros((n, size, size, 3), np.float32)
+    labels = np.zeros((n, MAX_LABELS, 5), np.float32)
+    for i in range(n):
+        img, boxes = draw_scene(rng, NUM_CLASSES)
+        images[i], r = letterbox_image(img, (size, size))
+        for j, (x, y, w, h, cat) in enumerate(boxes):
+            labels[i, j] = (cat - 1, (x + w / 2) * r, (y + h / 2) * r,
+                            w * r, h * r)
+    return (torch.from_numpy(images).to(dev),
+            torch.from_numpy(labels).to(dev))
+
+
+def write_coco(root: Path, n: int, num_classes: int, seed: int = 0) -> None:
+    """A COCO set under `root`: `n` JPEGs of `draw_scene` and their
+    annotations."""
+    import numpy as np
     rng = np.random.default_rng(seed)
     (root / "images").mkdir(parents=True)
     (root / "annotations").mkdir()
     h, w = JPEG_HW
     images, anns = [], []
     for i in range(n):
-        img = Image.new("RGB", (w, h), tuple(rng.integers(0, 256, 3).tolist()))
-        draw = ImageDraw.Draw(img)
-        for _ in range(int(rng.integers(1, 6))):
-            bw, bh = int(rng.integers(24, w // 2)), int(rng.integers(24, h // 2))
-            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
-            draw.rectangle([x, y, x + bw, y + bh],
-                           fill=tuple(rng.integers(0, 256, 3).tolist()))
+        img, boxes = draw_scene(rng, num_classes)
+        for x, y, bw, bh, cat in boxes:
             anns.append({"id": len(anns) + 1, "image_id": i + 1,
-                         "category_id": int(rng.integers(1, num_classes + 1)),
-                         "bbox": [x, y, bw, bh], "area": bw * bh,
-                         "iscrowd": 0})
+                         "category_id": cat, "bbox": [x, y, bw, bh],
+                         "area": bw * bh, "iscrowd": 0})
         img.save(root / "images" / f"{i:04d}.jpg", quality=90)
         images.append({"id": i + 1, "file_name": f"{i:04d}.jpg",
                        "height": h, "width": w})
@@ -1770,11 +1864,13 @@ def phase_anchor(torch, card: str, dev) -> dict:
             "records": rec}
 
 
-def path_call_recorder(torch):
+def path_call_recorder(torch, sites=None):
     """A context that records copies of the inputs of the calls the path
-    makes to `topk_rows`, `mosaic_warp` and `nms_suppress`, the first ones
-    at each shape (PATH_CALL_SITES says how many), while the calls run
-    unchanged; it yields {kernel name: {shape: [(args, kwargs), ...]}}."""
+    makes to `topk_rows`, `mosaic_warp` and `nms_suppress` (or to those of
+    `sites`, shaped like PATH_CALL_SITES), the first ones at each shape
+    (PATH_CALL_SITES says how many), while the calls run unchanged; it
+    yields {kernel name: {shape: [(args, kwargs), ...]}}."""
+    sites = PATH_CALL_SITES if sites is None else sites
     import contextlib
     import importlib
 
@@ -1786,9 +1882,9 @@ def path_call_recorder(torch):
 
     @contextlib.contextmanager
     def record():
-        records = {name: {} for name in PATH_CALL_SITES}
+        records = {name: {} for name in sites}
         saved = {}
-        for name, (where, per_shape) in PATH_CALL_SITES.items():
+        for name, (where, per_shape) in sites.items():
             module = importlib.import_module(where)
             fn = getattr(module, name)
             saved[name] = module, fn
@@ -2754,6 +2850,283 @@ def phase_mobile(torch, card: str, dev) -> dict:
             "max_abs_err": {name: err for name, (err, _) in checks.items()}}
 
 
+def deploy_checkpoint(torch, dev, directory: Path) -> None:
+    """Train `yolox_s.yaml` (bf16) a step on each of DEPLOY_BATCHES batches
+    of scene images and their labels with the trainer's step (SGD, EMA,
+    BatchNorm statistics) and save the state, in the trainer's checkpoint
+    layout, to `directory`. The schedule's horizon is TOTAL_STEPS, as phase 5's, so
+    the steps run in its warm-up."""
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.train.checkpoint import CheckpointManager
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG)
+    model = build_model(cfg, NUM_CLASSES, device=dev)
+    module = model.module.train()
+    optimizer, _ = build_optimizer(module, cfg["optimizer"],
+                                   total_steps=TOTAL_STEPS)
+    state = TrainState.create(module, optimizer)
+    step = make_train_step(model.loss.train_loss)
+    batches = [scene_batch(torch, dev, BATCH, SIZE, seed)
+               for seed in range(DEPLOY_BATCHES)]
+    for images, labels in batches:
+        losses = step(state, images, labels)
+    if not math.isfinite(float(losses["loss"])):
+        raise AssertionError(f"deploy checkpoint: loss {losses}")
+    CheckpointManager(directory).save(state.step, {
+        "step": state.step, "module": state.module.state_dict(),
+        "ema_module": state.ema_module.state_dict(),
+        "optimizer": state.optimizer.state_dict()}, {"mAP": 0.0})
+
+
+def phase_deploy(torch, card: str, dev) -> dict:
+    """Phase 15 (see the module docstring), on the card `dev`. Returns the
+    deploy path's NMS launches, the kernel's max |kernel - plain| on the
+    `.pt2`'s own calls and its times there."""
+    from pl_yolo_tpu_torch.deploy import export
+    from pl_yolo_tpu_torch.deploy import numpy_infer as ni
+    from pl_yolo_tpu_torch.deploy.onnx_numpy_runtime import OnnxModel
+    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import nms_suppress
+    from pl_yolo_tpu_torch.ops.nms import nms_candidates, postprocess
+    from pl_yolo_tpu_torch.tools import deploy_cli as cli
+    from pl_yolo_tpu_torch.tools import export as export_tool
+
+    def rel_err(got, want):
+        return export.max_abs_err(got, want, relative=True)
+    from pl_yolo_tpu_torch.train.checkpoint import CheckpointManager
+    t_phase = time.perf_counter()
+    autotune = torch.backends.cudnn.benchmark  # new conv shapes: see 14
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_deploy_"))
+    times = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[what] = time.perf_counter() - t0
+        return out
+
+    ckpt = tmp / "checkpoints"
+    try:
+        # the trained checkpoint: its EMA weights and BN statistics, in an
+        # fp32 model (the .pt, ONNX and npz artifacts and the reference
+        # forward; TF32 off since phase 4) and in the config's bf16 (the
+        # .pt2, as tools.export makes it)
+        timed("checkpoint", lambda: deploy_checkpoint(torch, dev, ckpt))
+        mgr = CheckpointManager(ckpt)
+        tree = mgr.restore()
+        ema = tree["ema_module"]
+        if ema is None or tree["step"] <= 0:
+            raise AssertionError("the checkpoint holds no trained EMA state")
+        moved = max(float(t.abs().max()) for k, t in ema.items()
+                    if k.endswith("running_mean"))
+        if not moved > 0:
+            raise AssertionError("the checkpoint's BN statistics are the "
+                                 "init's")
+        del tree, ema
+        fp32, step = timed("load", lambda: export.load_model(
+            CONFIG, NUM_CLASSES, dev, ckpt))
+        bf16, _ = export.load_model(CONFIG, NUM_CLASSES, dev, ckpt,
+                                    fp32=False)
+        requests = [scene_batch(torch, dev, BATCH, SIZE, 100 + i)[0]
+                    for i in range(REQUESTS)]
+        kw = dict(conf=DEPLOY_CONF, nms=IOU)
+        serve = {p: export.ServeModule(m.module, m.loss.eval_decode, **kw)
+                 for p, m in (("fp32", fp32), ("bf16", bf16))}
+
+        # the artifacts: .pt traced on the card; .pt2 exported on the card
+        # and, through the CLI, on the host, then moved to the card
+        note("deploy: export")
+        timed("torchscript", lambda: export.export_torchscript(
+            fp32, tmp / "m.pt", SIZE, BATCH))
+        pt = timed("torchscript load", lambda: torch.jit.load(
+            str(tmp / "m.pt"), map_location=dev))
+        timed("program", lambda: export.export_program(
+            bf16, tmp / "card.pt2", BATCH, SIZE, **kw))
+        card_pt2 = timed("program load", lambda: export.load_program(
+            tmp / "card.pt2", dev))
+        rc = timed("program on the host (CLI)", lambda: export_tool.main([
+            "-c", str(CONFIG), "--ckpt", str(ckpt), "-o",
+            str(tmp / "host.pt2"), "--device", "cpu", "--num-classes",
+            str(NUM_CLASSES), "--batch", str(BATCH), "--size", str(SIZE),
+            "--conf", str(DEPLOY_CONF), "--nms", str(IOU)]))
+        if rc != 0:
+            raise AssertionError(f"tools.export --device cpu: exit {rc}")
+        host_pt2 = timed("program load and move", lambda: export.load_program(
+            tmp / "host.pt2", dev))
+
+        # 4 requests through each, the NMS launches counted from 0 for each;
+        # the card .pt2's NMS calls recorded where the operator makes them
+        note("deploy: serve")
+        record = path_call_recorder(torch, {"nms_suppress": (
+            "pl_yolo_tpu_torch.ops.nms", REQUESTS)})
+
+        def pt_serve(x):
+            preds = pt(x.permute(0, 3, 1, 2).contiguous())
+            return preds, postprocess(preds, conf_threshold=DEPLOY_CONF,
+                                      iou_threshold=IOU, device=dev)
+
+        artifacts = {".pt + postprocess": pt_serve, ".pt2": card_pt2,
+                     ".pt2 from the host": host_pt2}
+        outs, launches = {}, 0
+        with torch.no_grad():
+            for name, fn in artifacts.items():
+                reset_launch_counts()
+                if name == ".pt2":
+                    with record() as records:
+                        outs[name] = [fn(x) for x in requests]
+                else:
+                    outs[name] = [fn(x) for x in requests]
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                want = {n: REQUESTS if n == "nms_suppress" else 0
+                        for n in counts}
+                if counts != want:
+                    raise AssertionError(f"{name}: launches {counts}, not "
+                                         f"{want}")
+                launches += counts["nms_suppress"]
+            eager = {p: [fn(x) for x in requests] for p, fn in serve.items()}
+            ref_maps = [fp32.module(x) for x in requests]
+            ref_preds = [fp32.loss.eval_decode(m) for m in ref_maps]
+            maps_max = max(float(m.abs().max()) for ms in ref_maps
+                           for m in ms)
+            del ref_maps
+        checks = path_calls_equal_plain(torch, records, "the .pt2 on the card")
+        (nms_err, nms_shapes) = checks["nms_suppress"]
+
+        # every artifact against the eager forward on the card
+        ts_err = max(rel_err(p.cpu().numpy(), r.cpu().numpy())
+                     for (p, _), r in zip(outs[".pt + postprocess"],
+                                          ref_preds))
+        if not ts_err <= MAPS_TOL:
+            raise AssertionError(f".pt vs eager fp32: {ts_err}")
+        for name in (".pt2", ".pt2 from the host"):
+            for got, want in zip(outs[name], eager["bf16"]):
+                err = export.detections_err(got, want)
+                if not (err["same_valid"] and err["max_rel"] <= MAPS_TOL):
+                    raise AssertionError(f"{name} vs eager bf16: {err}")
+        pt2_err = [export.detections_err(g, w) for g, w in
+                   zip(outs[".pt2"], eager["bf16"])]
+        vs_fp32 = [export.detections_err(g, w) for g, w in
+                   zip(outs[".pt2"], eager["fp32"])]
+        # a decode of the trained weights may overflow (boxes of infinite
+        # width): the comparisons above hold such entries equal only where
+        # both sides have the same one; count them
+        nonfinite = sum(int((~torch.isfinite(p)).sum()) for p in ref_preds)
+        nonfinite_det = sum(int((~torch.isfinite(d[0][d[3]])).any(-1).sum())
+                            for d in outs[".pt2"])
+        log(f"[deploy] checkpoint: {DEPLOY_STEPS} train steps of "
+            f"{CONFIG.name} (bf16, B={BATCH}) on scene images, saved at step "
+            f"{step}, EMA BN means up to {moved:.4f}, its eval head maps up "
+            f"to {maps_max:.3f}; "
+            f"{REQUESTS} requests of {BATCH}x{SIZE}x{SIZE} through each "
+            f"artifact on the card, conf {DEPLOY_CONF}, NMS {IOU}: "
+            f"nms_suppress launches {REQUESTS} each ({launches} in all), "
+            f"none of the other kernels; non-finite entries: {nonfinite} of "
+            f"the eager fp32 predictions, {nonfinite_det} valid .pt2 "
+            f"detections with a non-finite box")
+        log(f"[deploy] .pt (fp32, BN folded) vs eager fp32 predictions: max "
+            f"rel err {ts_err:.3e} (tolerance {MAPS_TOL}); .pt2 (bf16) vs "
+            f"eager bf16 served: {pt2_err[0]} .. valid "
+            f"{[e['n_valid'] for e in pt2_err]} (tolerance: valid and "
+            f"classes equal, boxes and scores {MAPS_TOL} of their scale); "
+            f"the host-exported .pt2 moved to the card: the same; .pt2 (bf16)"
+            f" vs eager fp32 served: valid equal "
+            f"{[e['same_valid'] for e in vs_fp32]}")
+        log(f"[deploy] the .pt2's own NMS calls == plain bit for bit: "
+            f"{', '.join(nms_shapes)} (max abs err {nms_err})")
+
+        # the host artifacts at one image of 256^2 against the card
+        note("deploy: host artifacts")
+        img = scene_batch(torch, "cpu", 1, DEPLOY_HOST_SIZE, 200)[0].numpy()
+        want = cli.eager_predictions(fp32, img)
+        meta = timed("npz", lambda: export.export_npz(
+            fp32.cfg, fp32, tmp / "m.npz"))
+        params, stats, meta = ni.load_npz(tmp / "m.npz")
+        npz_err = rel_err(timed("npz run", lambda: ni.forward(
+            params, stats, img, meta)), want)
+        blob = timed("onnx", lambda: export.export_onnx(
+            fp32, 1, DEPLOY_HOST_SIZE))
+        onnx_err = rel_err(timed("onnx run", lambda: OnnxModel(
+            blob).run({"images": cli.nchw(img)})["predictions"]), want)
+        log(f"[deploy] host runtimes vs eager fp32 on the card, 1x"
+            f"{DEPLOY_HOST_SIZE}x{DEPLOY_HOST_SIZE}: npz (numpy_infer) max "
+            f"rel err {npz_err:.3e}, ONNX ({len(blob) / 2 ** 20:.1f} MiB, "
+            f"{len(OnnxModel(blob).nodes)} nodes, numpy runtime) "
+            f"{onnx_err:.3e} (tolerance {MAPS_TOL})")
+        if not (npz_err <= MAPS_TOL and onnx_err <= MAPS_TOL):
+            raise AssertionError(f"host artifacts: npz {npz_err}, onnx "
+                                 f"{onnx_err}")
+
+        # times: infer+NMS of each route on the same images, in turns,
+        # DEPLOY_ROUNDS rounds of 10 requests each after 2
+        note("deploy: times")
+        x = requests[0]
+        with torch.no_grad():
+            routes = {".pt + postprocess": lambda: pt_serve(x),
+                      ".pt2": lambda: card_pt2(x),
+                      ".pt2 from the host": lambda: host_pt2(x),
+                      "eager fp32": lambda: serve["fp32"](x),
+                      "eager bf16": lambda: serve["bf16"](x)}
+            rounds = {name: [] for name in routes}
+            for _ in range(DEPLOY_ROUNDS):
+                for name, fn in routes.items():
+                    rounds[name].append(cuda_ms(torch, fn, iters=10,
+                                                warmup=2))
+            ms = {name: min(r) for name, r in rounds.items()}
+            preds = ref_preds[0]
+            cls_conf, cls_pred = preds[..., 5:].max(-1)
+            cand = nms_candidates(preds[..., :4], preds[..., 4] * cls_conf,
+                                  cls_pred.to(torch.int32), DEPLOY_CONF,
+                                  PRE_NMS_TOPK)
+            op = torch.ops.pl_yolo_tpu_torch.nms_suppress
+            calls = {"wrapper": lambda: nms_suppress(cand.nms_boxes,
+                                                     cand.valid, IOU),
+                     "operator": lambda: op(cand.nms_boxes, cand.valid, IOU)}
+            # by CUDA events, and the host's time to issue 50 calls (the
+            # serving path is host-bound), in turns
+            call_us = {n: [] for n in calls}
+            issue_us = {n: [] for n in calls}
+            for _ in range(3):
+                for n, fn in calls.items():
+                    call_us[n].append(1e3 * cuda_ms(torch, fn, iters=50))
+                    t0 = time.perf_counter()
+                    for _ in range(50):
+                        fn()
+                    issue_us[n].append((time.perf_counter() - t0) * 1e6 / 50)
+                    torch.cuda.synchronize()
+        # the kernel's time on the .pt2's first NMS input
+        first_call = next(iter(records["nms_suppress"].values()))[0]
+        boxes, valid, _ = first_call[0]
+        rec = nms_record(torch, boxes, valid)
+        for name, t in ms.items():
+            log(f"[time] deploy infer+NMS {name} B={BATCH}: {t:.3f} ms, "
+                f"{BATCH * 1000.0 / t:.1f} images/s (best of "
+                f"{DEPLOY_ROUNDS} rounds in turns: "
+                f"{', '.join(f'{r:.3f}' for r in rounds[name])} ms) on {card}")
+        extra_us = min(issue_us["operator"]) - min(issue_us["wrapper"])
+        log(f"[time] deploy: the NMS step through the operator "
+            f"{min(call_us['operator']):.2f} us a call by CUDA events, "
+            f"{min(issue_us['operator']):.2f} us of host time to issue it, "
+            f"vs the wrapper {min(call_us['wrapper']):.2f} / "
+            f"{min(issue_us['wrapper']):.2f} us (best of 3 x 50 in turns): "
+            f"{extra_us:.2f} us of host time, "
+            f"{extra_us / 10.0 / ms['eager bf16']:.3f}% of a "
+            f"{ms['eager bf16']:.3f} ms request; nms_suppress on the "
+            f".pt2's input: {rec['ms'] * 1e3:.2f} us, plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.3f}"
+            f" us ({rec['bound_by']}, {rec['n_valid']} valid rows) on {card}")
+        log("[time] deploy steps, s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in times.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.benchmark = autotune
+    log(f"[deploy] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": nms_err, "record": rec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3393,22 +3766,8 @@ def main() -> int:
         f"{BATCH * 1000.0 / infer_ms:.1f} images/s (forward {fwd_ms:.3f} ms, "
         f"decode {dec_ms:.3f} ms, postprocess {pp_ms:.3f} ms) on {card}")
 
-    def nms_record(boxes, valid):
-        b, k = valid.shape
-        n_valid = valid.sum(1).double()
-        ops = NMS_OPS_PER_PAIR * float((n_valid * (n_valid - 1) / 2).sum())
-        nbytes = boxes.numel() * 4 + valid.numel() + b * k
-        bound = {"operations": ops / PEAK_FP32_FLOPS * 1e3,
-                 "bytes": nbytes / PEAK_BYTES * 1e3}
-        bound_by = max(bound, key=bound.get)
-        ms = cuda_ms(torch, lambda: nms_suppress(boxes, valid, IOU), iters=50)
-        plain = cuda_ms(torch, lambda: suppress_plain(boxes, valid, IOU),
-                        iters=10)
-        return dict(ms=ms, plain_ms=plain, bound_ms=bound[bound_by],
-                    bound_by=bound_by, n_valid=int(n_valid.sum()))
-
     note("times: nms_suppress")
-    main_rec = nms_record(cand.nms_boxes, cand.valid)
+    main_rec = nms_record(torch, cand.nms_boxes, cand.valid)
     _, stages = device_profile(
         torch, lambda: nms_suppress(cand.nms_boxes, cand.valid, IOU), 20, 2)
     def short(name):
@@ -3418,7 +3777,7 @@ def main() -> int:
     log("[profile] nms_suppress stages on the main-path input, us per call: "
         + ", ".join(f"{short(name)} {ms * 1e3:.2f}" for name, ms in stages))
     syn_boxes, syn_valid = nms_cases(torch, dev)[0][1:3]
-    syn_rec = nms_record(syn_boxes, syn_valid)
+    syn_rec = nms_record(torch, syn_boxes, syn_valid)
     for label, r in (("main-path input", main_rec),
                      ("random [16,1024], 80 classes", syn_rec)):
         log(f"[time] nms_suppress on {label}: {r['ms'] * 1e3:.2f} us, plain "
@@ -3823,16 +4182,26 @@ def main() -> int:
     warp_err = max(warp_err, mobile["max_abs_err"]["mosaic_warp"])
     e_yolox = mobile["launches"]
 
+    # 15. deploy: a trained checkpoint through every exporter, served
+    note("deploy")
+    deploy = phase_deploy(torch, card, dev)
+    max_err = max(max_err, deploy["max_abs_err"])
+
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "nms_suppress", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/nms_pallas.py:29",
-        "launches": nms_launches + e_yolox["nms_suppress"],
-        "launches_e_yolox_s": e_yolox["nms_suppress"], "max_abs_err": max_err,
+        "launches": (nms_launches + e_yolox["nms_suppress"]
+                     + deploy["launches"]),
+        "launches_e_yolox_s": e_yolox["nms_suppress"],
+        "launches_deploy": deploy["launches"], "max_abs_err": max_err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+        "ms_deploy": deploy["record"]["ms"],
+        "plain_ms_deploy": deploy["record"]["plain_ms"],
+        "bound_ms_deploy": deploy["record"]["bound_ms"],
         "library_ms": None}, {
         "name": "topk_rows", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",

@@ -47,6 +47,17 @@
 // box that sits at the threshold. The class offsets (class * 4096, up to
 // about 80 * 4096, where fp32 spacing is 1/32) are added by the caller in
 // fp32 before this kernel, the same add on the card and on the CPU.
+// Non-finite coordinates (a decode whose exp overflowed gives boxes of
+// infinite width) follow the plain version too. torch.maximum, minimum and
+// clamp, like jnp's, return NaN for a NaN operand, where fmaxf and fminf
+// return the other one; on the CPU any NaN in a pair's arithmetic makes
+// its IoU NaN, which suppresses nothing. Here the areas (once a box) and
+// the union's clamp (clamp_min) pass a NaN on, and that is enough: a NaN
+// coordinate, or a side of inf - inf, makes its box's area NaN and so the
+// union; a NaN width or height of the intersection needs such a side; an
+// inf - inf union is NaN itself; and a 0 * inf intersection is NaN in
+// both versions, which the inter > 0 test rejects. So every pair the CPU
+// finds NaN has a NaN union here, and the others see the same numbers.
 // K need not be a multiple of 64: the ragged last block is masked.
 
 #include <cstdint>
@@ -57,8 +68,12 @@ namespace {
 constexpr int kBlockRows = 64;  // rows (and columns) per mask block
 constexpr int kMaxK = 16384;    // mask scratch: K * K / 8 bytes per image
 
+__device__ __forceinline__ float clamp_min(float x, float lo) {  // NaN stays
+  return x != x ? x : fmaxf(x, lo);
+}
+
 __device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
-  return __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f), fmaxf(__fsub_rn(y2, y1), 0.0f));
+  return __fmul_rn(clamp_min(__fsub_rn(x2, x1), 0.0f), clamp_min(__fsub_rn(y2, y1), 0.0f));
 }
 
 __global__ void nms_mask_kernel(const float* __restrict__ boxes, int K, int nwords,
@@ -87,9 +102,10 @@ __global__ void nms_mask_kernel(const float* __restrict__ boxes, int K, int nwor
     const float h = fmaxf(__fsub_rn(fminf(y2, cols[c][3]), fmaxf(y1, cols[c][1])), 0.0f);
     const float inter = __fmul_rn(w, h);
     const float uni = __fsub_rn(__fadd_rn(area_i, cols[c][4]), inter);
-    // 0 / max(union, 1e-12) is 0: the many disjoint pairs (every pair of
-    // two classes) skip the IEEE division and its slow-path check
-    const float iou = inter > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
+    // 0 / max(union, 1e-12) is 0 (or NaN, which no more than 0 passes the
+    // threshold): the many disjoint pairs (every pair of two classes) skip
+    // the IEEE division and its slow-path check; a NaN inter does too
+    const float iou = inter > 0.0f ? __fdiv_rn(inter, clamp_min(uni, 1e-12f)) : 0.0f;
     if (iou > threshold) bits |= 1ull << c;
   }
   mask[((size_t)b * K + i) * nwords + cb] = bits;

@@ -314,10 +314,11 @@ class Focus(nn.Module):
             return blk(x.to(blk.dtype or blk.conv.weight.dtype))
         if self.fused and not self.training:
             blk = self.conv
-            w6 = focus_kernel_6x6(blk.conv.weight)
+            w6, b = focus_kernel_6x6(blk.conv.weight), blk.conv.bias
             if blk.dtype is not None:
                 x, w6 = x.to(blk.dtype), w6.to(blk.dtype)
-            return blk.norm_act(F.conv2d(x, w6, stride=2, padding=2))
+                b = None if b is None else b.to(blk.dtype)
+            return blk.norm_act(F.conv2d(x, w6, b, stride=2, padding=2))
         return self.conv(space_to_depth(x))
 
 

@@ -10,6 +10,10 @@ A tensor on the CPU goes through the plain version (`suppress_plain`, the
 IoU matrix and fixpoint of `ops.nms`); a tensor on the card launches the
 kernel, on the current stream, or raises. The kernel's source note gives
 its design and bound. `nms_suppress.launches` counts kernel launches.
+
+`ops.nms.suppress_op` registers this wrapper as the operator
+`torch.ops.pl_yolo_tpu_torch.nms_suppress`, which a tracer records as one
+node.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
+def check_inputs(boxes: torch.Tensor, valid: torch.Tensor) -> None:
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [B,K,4], got {tuple(boxes.shape)}")
     if valid.shape != boxes.shape[:2]:
@@ -57,7 +61,7 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
 
 def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor,
                  iou_threshold: float) -> torch.Tensor:
-    _check(boxes, valid)
+    check_inputs(boxes, valid)
     if boxes.device.type == "cpu":
         return suppress_plain(boxes, valid, iou_threshold)
     if boxes.device.type != "cuda":

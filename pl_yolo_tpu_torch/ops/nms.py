@@ -6,7 +6,9 @@
     dense [B, max_det] set of boxes, scores and classes plus a validity mask.
   * Greedy NMS runs on the top-`pre_nms_topk` candidates. The suppression
     step is `ops.cuda.nms_suppress`: a hand-written CUDA kernel for a tensor
-    on the card, the plain `greedy_suppress` below for a CPU tensor.
+    on the card, the plain `greedy_suppress` below for a CPU tensor; under
+    `torch.export` it is traced as the registered operator
+    `pl_yolo_tpu_torch::nms_suppress`, which runs the same wrapper.
   * The pre-NMS and max_det top-k are stable descending sorts, so that among
     equal scores the lower index comes first, as `lax.top_k` orders them.
   * Class-aware NMS shifts boxes per class (`box_offset_span`) so that
@@ -21,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from .cuda.nms_suppress import nms_suppress
+from .cuda.nms_suppress import check_inputs, nms_suppress
 
 
 class Detections(NamedTuple):
@@ -55,7 +57,7 @@ def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
     to its fixpoint: row 0 is final after one pass, and once rows < j are
     final row j is final on the next pass, so the fixpoint is the greedy
     solution. A batch iterates until every image has reached its fixpoint
-    (a fixpoint maps to itself)."""
+    (a fixpoint maps to itself). The result never aliases `valid`."""
     k = iou.shape[-1]
     upper = torch.ones((k, k), dtype=torch.bool, device=iou.device).triu(1)
     over = ((iou > iou_threshold) & upper).to(torch.float32)
@@ -64,9 +66,29 @@ def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
         killed = (alive.to(torch.float32).unsqueeze(-2) @ over).squeeze(-2) > 0
         new = valid & ~killed
         if torch.equal(new, alive):
-            break
+            return new
         alive = new
     return alive
+
+
+@torch.library.custom_op("pl_yolo_tpu_torch::nms_suppress", mutates_args=())
+def suppress_op(boxes: torch.Tensor, valid: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """The suppression step as a registered operator: `torch.export`
+    records it as one node, where it could trace neither the plain
+    version's fixpoint loop (it reads its data) nor the kernel's launch
+    (through `ctypes`). It runs `nms_suppress`, looked up in this module
+    when it runs (where `batched_nms` calls it), so an exported program on
+    the card launches the kernel, counted as any other launch, and on the
+    CPU runs the plain version. Its fake version reads no data."""
+    return nms_suppress(boxes, valid, iou_threshold)
+
+
+@suppress_op.register_fake
+def _(boxes: torch.Tensor, valid: torch.Tensor,
+      iou_threshold: float) -> torch.Tensor:
+    check_inputs(boxes, valid)
+    return torch.empty(valid.shape, dtype=torch.bool, device=valid.device)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -128,7 +150,10 @@ def batched_nms(
     cand = nms_candidates(boxes, scores, classes, conf_threshold,
                           pre_nms_topk, class_agnostic, box_offset_span)
     top_boxes = cand.boxes
-    alive = nms_suppress(cand.nms_boxes, cand.valid, iou_threshold)
+    # a tracer records the suppression as the operator's one node
+    suppress = (suppress_op if torch.compiler.is_exporting()
+                else nms_suppress)
+    alive = suppress(cand.nms_boxes, cand.valid, iou_threshold)
 
     if merge:
         # merge-NMS: each kept box becomes the score-weighted average of

@@ -4,7 +4,10 @@ port of `pl_yolo_tpu/utils/fuse.py` for the port's modules.
 `fuse_conv_bn` folds BatchNorm statistics into a conv kernel and bias;
 `fuse_repconv` collapses a `RepConv`'s (3x3 + BN, 1x1 + BN, identity BN)
 branches into one biased 3x3 conv, and `fuse_repconvs_` swaps every RepConv
-of a model for that conv, which gives the same eval output.
+of a model for that conv, which gives the same eval output. `fold_bn_`
+folds the BatchNorm of every `ConvBlock` into its conv, as the JAX
+package's exporters fold them before writing a graph (an ONNX runtime then
+needs no BatchNormalization).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers.blocks import BN_EPS
+from ..layers.blocks import BN_EPS, ConvBlock
 from ..models.necks.yolov7_neck import RepConv
 
 
@@ -78,4 +81,24 @@ def fuse_repconvs_(module: nn.Module) -> nn.Module:
             setattr(module, name, FusedRepConv(child))
         else:
             fuse_repconvs_(child)
+    return module
+
+
+@torch.no_grad()
+def fold_bn_(module: nn.Module) -> nn.Module:
+    """Fold the BatchNorm of every `ConvBlock` inside `module` into its
+    conv, in place: the conv takes the folded kernel and a bias, and the
+    block's `bn` becomes None (the stem's `Focus` folds through its
+    `ConvBlock`). For an fp32 module in eval mode, whose output stays the
+    same up to rounding; a RepConv is folded by `fuse_repconvs_` first.
+    Returns `module`."""
+    if module.training:
+        raise ValueError("fold_bn_ folds the running statistics of an "
+                         "eval-mode module; call .eval() first")
+    for m in module.modules():
+        if isinstance(m, ConvBlock) and m.bn is not None:
+            kernel, bias = _fuse(m.conv.weight, m.bn)  # the conv has no bias
+            m.conv.weight.copy_(kernel)
+            m.conv.bias = nn.Parameter(bias)
+            m.bn = None
     return module
