@@ -189,6 +189,30 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      `postprocess`, both `.pt2`, the eager fp32 and bf16 models, in turns;
      the operator's cost a call over the wrapper's; the NMS kernel's time
      on the `.pt2`'s input; each step's seconds and the phase's time.
+ 16. several ranks on the card (`pl_yolo_tpu_torch.parallel`): (a) two
+     ranks, spawned once as children of this script (`--parallel-rank`),
+     over gloo by the backend rule (two ranks share the one card; what
+     gloo takes through host memory is printed), train `yolox_s_zero.yaml`
+     (ZeRO-1, `accumulate_steps: 2`, clip 35, the s2d augmentation of the
+     global batch, 8 rows a rank) and `vit_tiny_pp2.yaml` (GPipe, 2
+     stages, 2 microbatches of 8) at full width, 640^2, global batch 16:
+     4 fp32 steps (TF32 off), each rank's losses and rank 0's gathered
+     state against one process here from the same init on the same batch
+     (PARALLEL_TOL, printed with its reason), then 2 steps in the YAMLs'
+     bf16 with finite losses, images/s as two ranks sharing one card (the
+     ranks start their steps once the one-process references here are
+     done, so nothing else runs on the card meanwhile); each
+     rank's bytes of ZeRO state against one process's; one eval batch of
+     each rank's rows through the gathered EMA and `postprocess`; each
+     rank's own calls of the warp, top-k and NMS kernels recorded and held
+     to the plain versions bit for bit; (b) one rank over NCCL: a ZeRO-3
+     step; (c) `torchrun --nproc-per-node 2 -m pl_yolo_tpu_torch -c
+     yolox_s_zero.yaml` for one epoch and a validation on 32 JPEGs at
+     320^2; a one-process `Trainer.fit` of the same configs here, whose
+     checkpoint the rank-0 checkpoint's weights and EMA are held to
+     (PARALLEL_CLI_TOL of the change from the init), then the rank-0
+     checkpoint validated by that `Trainer` to the mAP the two ranks
+     printed; the phase's time.
 
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
@@ -199,7 +223,8 @@ times: on the YOLOX path's rows, on the YOLOv7 OTA's and on the Swin
 path's; the four kernels' `launches` add the e-YOLOX path's to the
 YOLOX path's, which `launches_e_yolox_s` gives alone, and the deploy
 path's, which `launches_deploy` gives alone, with the kernel's times on
-the `.pt2`'s input as `ms_deploy`, `plain_ms_deploy`, `bound_ms_deploy`),
+the `.pt2`'s input as `ms_deploy`, `plain_ms_deploy`, `bound_ms_deploy`,
+and phase 16's, which `launches_parallel` gives alone),
 and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
@@ -328,6 +353,31 @@ DEPLOY_STEPS = DEPLOY_BATCHES = 4
 DEPLOY_CONF = 0.0
 DEPLOY_HOST_SIZE = 256  # the npz and ONNX runtimes' image, on the host
 DEPLOY_ROUNDS = 3  # the serving routes timed in turns
+# phase 16: several ranks on the one card. Two ranks, spawned once, train
+# yolox_s_zero (ZeRO-1, accumulate 2, clip 35, augmented, 8 rows a rank)
+# and vit_tiny_pp2 (GPipe, 2 stages of 6 blocks, M = 2 microbatches of 8)
+# at 640^2 on a global batch of 16, in fp32 (TF32 off) against one process
+# here from the same init on the same batch, then in their bf16
+PARALLEL_CONFIGS = ("yolox_s_zero", "vit_tiny_pp2")
+PARALLEL_RANKS, PARALLEL_STEPS, PARALLEL_BF16_STEPS = 2, 4, 2
+# fp32, two ranks against one process: the same function, but the convs
+# and matmuls see 8 rows (or 8-row microbatches) where one process sees
+# 16, so cuDNN and cuBLAS may pick other algorithms and sum in another
+# order, and BatchNorm's statistics are all-reduced partial sums: ~1e-6 of
+# a map's scale a layer, which 4 steps through ~70 BN layers carry into
+# the parameters. So each parameter's change since the init is held to
+# PARALLEL_TOL of that change (at least 1e-3 of the largest change), and
+# each logged loss to PARALLEL_LOSS_TOL relative; a wrong normaliser, a
+# wrong sum or mean of the gradients or a wrong augmentation partner moves
+# them by O(1) of the change
+PARALLEL_TOL, PARALLEL_LOSS_TOL = 2e-2, 1e-3
+PARALLEL_CLI_IMAGES, PARALLEL_CLI_SIZE = 32, 320  # torchrun: 2 steps of 16
+# the torchrun fit's rank-0 checkpoint against a one-process fit, both in
+# the YAML's bf16: |got - want| / |want - init| over the whole module (or
+# EMA) tree. bf16 convs on 8 rows and on 16 sum apart (~1e-2 of the
+# change); a stale or untrained checkpoint is 1, averaged instead of
+# summed gradients 0.5
+PARALLEL_CLI_TOL = 0.1
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -3127,6 +3177,383 @@ def phase_deploy(torch, card: str, dev) -> dict:
     return {"launches": launches, "max_abs_err": nms_err, "record": rec}
 
 
+def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
+                 steps: int) -> dict:
+    """`steps` train steps of `name`.yaml at full width, 640^2, on rows
+    `rows` of a global batch of 16 uint8 images (bench.py's) through the
+    trainer's route (the s2d augmentation for a Focus stem, else NHWC),
+    from seed 0, with a card generator seeded 7: under `layout` through
+    the data-parallel engine (ZeRO as the YAML says), else in one process.
+    fp32 (TF32 off since phase 4) or the YAML's dtype. Returns the global
+    losses of each step, its seconds, the state as one process keeps it
+    (fp32), the engine's state bytes and, for yolox_s_zero, one eval batch
+    of the rows through the EMA weights and `postprocess`."""
+    from pl_yolo_tpu_torch.data.augment import AugmentConfig, make_augment_fn
+    from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.ops.nms import postprocess
+    from pl_yolo_tpu_torch.parallel.zero import DataParallel
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import (TrainState, make_eval_step,
+                                               make_train_step)
+    from pl_yolo_tpu_torch.utils.config import load_config
+    cfg = load_config(MODEL_DIR / f"{name}.yaml")
+    if fp32:
+        cfg["dtype"] = None
+    par = cfg.get("parallel") or {}
+    zero = 3 if par.get("zero") == 3 else int(bool(par.get("zero")))
+    model = build_model(cfg, NUM_CLASSES, device=dev, seed=0,
+                        input_size=(SIZE, SIZE))
+    init = {k: v.detach().clone() for k, v in
+            model.module.state_dict().items()} if fp32 else None
+    engine = (DataParallel(model.module, layout, zero=zero)
+              if layout is not None else None)
+    optimizer, _ = build_optimizer(
+        model.module, cfg["optimizer"], TOTAL_STEPS,
+        **(engine.optimizer_views() if engine is not None else {}))
+    state = TrainState.create(model.module, optimizer, parallel=engine)
+    s2d = getattr(type(model.module.backbone), "STEM_S2D", False)
+
+    def s2d_apply(module, x):
+        with stem_input_s2d():
+            return module(x)
+    step = make_train_step(
+        model.loss.train_loss,
+        augment_fn=make_augment_fn(AugmentConfig(max_labels=AUG_MAX_LABELS),
+                                   out_s2d=s2d),
+        apply_fn=s2d_apply if s2d else None)
+    images = bench_images(torch, dev, BATCH, seed=16)[rows]
+    labels = train_labels(torch, dev, BATCH)[rows]
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(7)
+    losses, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = step(state, images, labels, generator=generator)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in out.items()})
+    res = {"losses": losses, "seconds": seconds}
+    if fp32:
+        if engine is not None and zero:
+            res["state"] = engine.module_state_dict()
+            res["bytes"] = engine.state_bytes()
+        else:
+            res["state"] = {k: v.detach().clone() for k, v in
+                            state.module.state_dict().items()}
+        res["init"] = init
+    if name == "yolox_s_zero":
+        eval_module = state.eval_module   # gathered from the EMA's shards
+        preds = make_eval_step(model.loss.eval_decode)(
+            eval_module, images.float())
+        det = postprocess(preds, conf_threshold=CONF_TRAINED,
+                          iou_threshold=IOU, device=dev)
+        res["detections"] = int(det.valid.sum())
+    return res
+
+
+def parallel_child(rank: int, port: int, out_dir: str,
+                   device: str = "cuda:0") -> None:
+    """One of phase 16's two ranks on the card (this script, run as
+    `chip_smoke.py --parallel-rank RANK PORT OUT_DIR` by phase 16): both
+    configs in turn, fp32 then bf16, its kernel calls recorded and held to
+    the plain versions; writes what it found to OUT_DIR/rank{RANK}.pt."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from pl_yolo_tpu_torch.parallel import collectives, distributed
+    from pl_yolo_tpu_torch.parallel.mesh import Layout
+    from pl_yolo_tpu_torch.utils.config import load_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device(device)
+    distributed.initialize(device=dev, init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=PARALLEL_RANKS,
+                           local_world_size=PARALLEL_RANKS)
+    res = {"backend": torch.distributed.get_backend()}
+    # the timed steps wait for the parent's one-process references
+    while not (Path(out_dir) / "refs_done").exists():
+        time.sleep(0.05)
+    reset_launch_counts()
+    with path_call_recorder(torch)() as records:
+        for name in PARALLEL_CONFIGS:
+            pipe = int((load_config(MODEL_DIR / f"{name}.yaml").get(
+                "parallel") or {}).get("pipeline", 1))
+            layout = Layout(PARALLEL_RANKS // pipe, pipe)
+            per = BATCH // layout.data
+            rows = slice(layout.data_index * per,
+                         (layout.data_index + 1) * per)
+            res[name] = parallel_run(torch, name, dev, layout, rows,
+                                     fp32=True, steps=PARALLEL_STEPS)
+            if rank:  # rank 0's gathered state is the one compared
+                res[name].pop("state", None)
+                res[name].pop("init", None)
+            res[name + " bf16"] = parallel_run(
+                torch, name, dev, layout, rows, fp32=False,
+                steps=PARALLEL_BF16_STEPS)
+    res["launches"] = launch_counts()
+    res["checks"] = path_calls_equal_plain(torch, records,
+                                           f"rank {rank} of phase 16")
+    res["staged"] = dict(collectives.STAGED)
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    distributed.shutdown()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def state_change_err(torch, got: dict, want: dict, init: dict) -> float:
+    """max over the float tensors of |got - want| / (its change since
+    `init`, at least 1e-3 of the largest change)."""
+    changes = {k: float((want[k].double() - init[k].double()).abs().max())
+               for k in want if want[k].is_floating_point()
+               and want[k].numel()}
+    floor = 1e-3 * max(changes.values())
+    return max(float((got[k].double() - want[k].double()).abs().max())
+               / max(change, floor) for k, change in changes.items())
+
+
+def tree_change_err(got: dict, want: dict, init: dict) -> float:
+    """|got - want| / |want - init| over the float tensors of a state
+    dict, each norm over the whole tree."""
+    err = change = 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            w = w.double()
+            err += float((got[k].double().to(w.device) - w).square().sum())
+            change += float((w - init[k].double().to(w.device))
+                            .square().sum())
+    return math.sqrt(err / change)
+
+
+def phase_parallel(torch, card: str, dev) -> dict:
+    """Phase 16 (see the module docstring), on the card `dev`. Returns the
+    kernels' launches on the two ranks' paths of step 1 (the torchrun
+    ranks' are not counted) and their max |kernel - plain| on the ranks'
+    own calls."""
+    import yaml
+    from pl_yolo_tpu_torch.parallel import distributed
+    from pl_yolo_tpu_torch.parallel.mesh import Layout
+    from pl_yolo_tpu_torch.parallel.zero import DataParallel
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.train.trainer import Trainer
+    from pl_yolo_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    launches = {k: 0 for k in GATE_KERNELS}
+    errs = {k: 0.0 for k in GATE_KERNELS}
+    try:
+        # 1. two ranks on the one card, spawned once; the one-process
+        # references meanwhile, here, before the ranks' steps start
+        note("parallel: two ranks")
+        port = free_port()
+        children = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--parallel-rank", str(r), str(port), str(tmp)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(PARALLEL_RANKS)]
+        try:
+            refs = {name: parallel_run(torch, name, dev, None,
+                                       slice(0, BATCH), fp32=True,
+                                       steps=PARALLEL_STEPS)
+                    for name in PARALLEL_CONFIGS}
+            (tmp / "refs_done").touch()
+            logs = [c.communicate(timeout=600)[0] for c in children]
+        finally:
+            for c in children:
+                if c.poll() is None:
+                    c.kill()
+                    c.wait()
+        for r, (c, out) in enumerate(zip(children, logs)):
+            if c.returncode != 0:
+                raise AssertionError(f"phase 16 rank {r}: exit "
+                                     f"{c.returncode}:\n{out[-4000:]}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(PARALLEL_RANKS)]
+        for line in logs[0].splitlines():
+            if line.startswith("[parallel]"):
+                log(line)
+        log(f"[parallel] backend by rule: {ranks[0]['backend']} (2 ranks, "
+            f"{torch.cuda.device_count()} card); staged through host "
+            f"memory: {ranks[0]['staged'] or 'nothing'}")
+        log(f"[parallel] tolerance: each parameter's change after "
+            f"{PARALLEL_STEPS} fp32 steps within {PARALLEL_TOL} of the "
+            f"one-process change, each loss within {PARALLEL_LOSS_TOL} "
+            f"(relative): the convs and matmuls see 8 rows where one "
+            f"process sees 16, cuDNN may sum in another order, BN's "
+            f"statistics are all-reduced partial sums")
+        for name in PARALLEL_CONFIGS:
+            ref = refs[name]
+            for r, got in enumerate(ranks):
+                for i, (g, w) in enumerate(zip(got[name]["losses"],
+                                               ref["losses"])):
+                    for k in w:
+                        err = abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+                        if not err <= PARALLEL_LOSS_TOL:
+                            raise AssertionError(
+                                f"{name}: rank {r} step {i} {k} {g[k]} != "
+                                f"one process's {w[k]}")
+                for what in ("", " bf16"):
+                    for i, losses in enumerate(got[name + what]["losses"]):
+                        if not all(math.isfinite(v) for v in losses.values()):
+                            raise AssertionError(f"{name}{what}: rank {r} "
+                                                 f"step {i}: {losses}")
+            err = state_change_err(torch, ranks[0][name]["state"],
+                                   ref["state"], ref["init"])
+            if not err <= PARALLEL_TOL:
+                raise AssertionError(f"{name}: the 2-rank state is {err:.3e} "
+                                     f"of its change from one process's")
+            bf16 = ranks[0][name + " bf16"]["seconds"][1:]
+            step_s = ranks[0][name]["seconds"][1:]
+            log(f"[parallel] {name} fp32, {PARALLEL_STEPS} steps at "
+                f"640^2, global batch {BATCH}: 2 ranks == 1 process "
+                f"(losses of the last step {ranks[0][name]['losses'][-1]['loss']:.6f} "
+                f"vs {ref['losses'][-1]['loss']:.6f}; worst parameter "
+                f"{err:.3e} of its change); bf16 losses finite; "
+                f"{BATCH / (sum(bf16) / len(bf16)):.1f} images/s bf16, "
+                f"{BATCH / (sum(step_s) / len(step_s)):.1f} fp32, as 2 ranks "
+                f"sharing one card over gloo (no scaling figure; one "
+                f"process fp32: "
+                f"{BATCH / (sum(ref['seconds'][1:]) / (PARALLEL_STEPS - 1)):.1f})"
+                f" on {card}")
+        b = ranks[0]["yolox_s_zero"]["bytes"]
+        for r, got in enumerate(ranks):
+            b = got["yolox_s_zero"]["bytes"]
+            log(f"[parallel] yolox_s_zero ZeRO-1, rank {r}: moments + "
+                f"accumulation {b['opt_state'] / 2**20:.1f} MiB of one "
+                f"process's {b['opt_state_one_process'] / 2**20:.1f}, EMA "
+                f"{b['ema'] / 2**20:.1f} of {b['ema_one_process'] / 2**20:.1f}"
+                f", params {b['params'] / 2**20:.1f} of "
+                f"{b['params_one_process'] / 2**20:.1f} (replicated at "
+                f"level 1); {got['yolox_s_zero']['detections']} detections "
+                f"on its eval rows")
+            if not b["opt_state"] < 0.55 * b["opt_state_one_process"]:
+                raise AssertionError(f"rank {r}: moments not sharded: {b}")
+            for k in GATE_KERNELS:
+                launches[k] += got["launches"][k]
+                errs[k] = max(errs[k], got["checks"][k][0])
+            log(f"[parallel] rank {r} kernel calls == plain, bit for bit: "
+                + describe_path_checks(got["checks"]))
+            if not (got["launches"]["topk_rows"] and
+                    got["launches"]["mosaic_warp"] and
+                    got["launches"]["nms_suppress"]):
+                raise AssertionError(f"rank {r} launches {got['launches']}")
+
+        # 2. one rank over NCCL: a ZeRO-3 step puts its all-gathers,
+        # reduce-scatters, all-reduces and broadcasts on the card
+        note("parallel: NCCL")
+        distributed.initialize(device=dev, init_method=f"tcp://127.0.0.1:"
+                               f"{free_port()}", rank=0, world_size=1,
+                               local_world_size=1)
+        try:
+            backend = torch.distributed.get_backend()
+            cfg = load_config(MODEL_DIR / "yolox_s_zero.yaml")
+            model = build_model(cfg, NUM_CLASSES, device=dev, seed=0,
+                                input_size=(SIZE, SIZE))
+            engine = DataParallel(model.module, Layout(1, 1), zero=3)
+            optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                           TOTAL_STEPS,
+                                           **engine.optimizer_views())
+            state = TrainState.create(model.module, optimizer,
+                                      parallel=engine)
+            step = make_train_step(model.loss.train_loss)
+            z3 = step(state, bench_images(torch, dev, 4).float(),
+                      train_labels(torch, dev, 4))
+            trained_ok(torch, "ZeRO-3 over NCCL", z3)
+            zb = engine.state_bytes()
+        finally:
+            distributed.shutdown()
+        if backend != "nccl":
+            raise AssertionError(f"world 1 on the card took {backend}")
+        log(f"[parallel] one rank over NCCL: a ZeRO-3 step of yolox_s_zero "
+            f"at B=4 (all-gather and reduce-scatter into tensors, "
+            f"all-reduce, broadcast on the card), loss "
+            f"{float(z3['loss']):.4f}; params held as shards "
+            f"{zb['params'] / 2**20:.1f} MiB")
+
+        # 3. torchrun: one epoch and a validation of yolox_s_zero at 320^2,
+        # then its rank-0 checkpoint validated by one process
+        note("parallel: torchrun")
+        write_coco(tmp / "coco", PARALLEL_CLI_IMAGES, NUM_CLASSES, seed=16)
+        model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        data_cfg["dataset"].update(
+            train_size=[PARALLEL_CLI_SIZE] * 2,
+            val_size=[PARALLEL_CLI_SIZE] * 2)
+        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", str(PARALLEL_RANKS), "--master-port",
+             str(free_port()), "-m", "pl_yolo_tpu_torch", "-c",
+             str(MODEL_DIR / "yolox_s_zero.yaml"), "-d",
+             str(tmp / "data.yaml"), "--max_epochs", "1", "--logger", "csv",
+             "--output_dir", str(tmp / "runs"), "-n", "zero_cli"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        lines = child.stdout.splitlines()
+        maps_line = [line for line in lines if line.startswith("mAP = ")]
+        if child.returncode != 0 or not maps_line:
+            raise AssertionError(f"torchrun: exit {child.returncode}:\n"
+                                 + "\n".join((child.stdout + child.stderr)
+                                             .splitlines()[-40:]))
+        ckpt = tmp / "runs" / "zero_cli" / "checkpoints"
+        # one process fits the same configs; the rank-0 checkpoint's
+        # weights and EMA against its checkpoint's
+        model_cfg = load_config(MODEL_DIR / "yolox_s_zero.yaml")
+        trainer = Trainer(model_cfg, data_cfg, max_epochs=1, logger="csv",
+                          output_dir=str(tmp / "one"), device=dev,
+                          experiment_name="zero_one")
+        init = {k: v.detach().clone() for k, v in
+                trainer.model.module.state_dict().items()}
+        trainer.fit()
+
+        def last_state(root):
+            steps = sorted(root.glob("*/state.pt"),
+                           key=lambda p: int(p.parent.name))
+            return torch.load(steps[-1], map_location=dev, weights_only=True)
+        two = last_state(ckpt)
+        one = last_state(tmp / "one" / "zero_one" / "checkpoints")
+        if two["step"] != one["step"]:
+            raise AssertionError(f"the rank-0 checkpoint is at step "
+                                 f"{two['step']}, one process's at "
+                                 f"{one['step']}")
+        ckpt_err = {part: tree_change_err(two[part], one[part], init)
+                    for part in ("module", "ema_module")}
+        if not max(ckpt_err.values()) <= PARALLEL_CLI_TOL:
+            raise AssertionError(f"the rank-0 checkpoint differs from one "
+                                 f"process's fit: {ckpt_err} of the change")
+        trainer.load_weights(str(ckpt))
+        ap, ap50 = trainer.validate()
+        want = float(maps_line[-1].split(",")[0].split("=")[1])
+        if round(ap, 4) != want:
+            raise AssertionError(f"the rank-0 checkpoint validates to mAP "
+                                 f"{ap:.4f} in one process, {want} in two")
+        log(f"[parallel] `torchrun --nproc-per-node 2 -m pl_yolo_tpu_torch "
+            f"-c yolox_s_zero.yaml` on {PARALLEL_CLI_IMAGES} JPEGs at "
+            f"{PARALLEL_CLI_SIZE}^2: exit 0 in {cli_s:.1f} s, "
+            f"'{maps_line[-1]}'; its rank-0 checkpoint (step {two['step']}) "
+            f"against a one-process fit of the same configs, bf16: weights "
+            f"{ckpt_err['module']:.3e}, EMA {ckpt_err['ema_module']:.3e} of "
+            f"the change from the init (tolerance {PARALLEL_CLI_TOL}); "
+            f"validated in one process: mAP = {ap:.4f}, mAP50 = {ap50:.4f}")
+        for line in lines:
+            if line.startswith(("[parallel]", "epoch ")):
+                log(f"[parallel]   torchrun: {line}")
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[parallel] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": errs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4187,6 +4614,14 @@ def main() -> int:
     deploy = phase_deploy(torch, card, dev)
     max_err = max(max_err, deploy["max_abs_err"])
 
+    # 16. several ranks on the card: DP, ZeRO, GPipe, torchrun
+    note("parallel")
+    parallel = phase_parallel(torch, card, dev)
+    pl = parallel["launches"]
+    max_err = max(max_err, parallel["max_abs_err"]["nms_suppress"])
+    topk_err = max(topk_err, parallel["max_abs_err"]["topk_rows"])
+    warp_err = max(warp_err, parallel["max_abs_err"]["mosaic_warp"])
+
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -4194,9 +4629,10 @@ def main() -> int:
         "source": "pl_yolo_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/nms_pallas.py:29",
         "launches": (nms_launches + e_yolox["nms_suppress"]
-                     + deploy["launches"]),
+                     + deploy["launches"] + pl["nms_suppress"]),
         "launches_e_yolox_s": e_yolox["nms_suppress"],
-        "launches_deploy": deploy["launches"], "max_abs_err": max_err,
+        "launches_deploy": deploy["launches"],
+        "launches_parallel": pl["nms_suppress"], "max_abs_err": max_err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "ms_deploy": deploy["record"]["ms"],
@@ -4206,8 +4642,9 @@ def main() -> int:
         "name": "topk_rows", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
-        "launches": topk_launches + e_yolox["topk_rows"],
-        "launches_e_yolox_s": e_yolox["topk_rows"], "max_abs_err": topk_err,
+        "launches": topk_launches + e_yolox["topk_rows"] + pl["topk_rows"],
+        "launches_e_yolox_s": e_yolox["topk_rows"],
+        "launches_parallel": pl["topk_rows"], "max_abs_err": topk_err,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": topk_recs["-cost M=50"]["bound_ms"],
         "bound_by": topk_recs["-cost M=50"]["bound_by"],
@@ -4215,8 +4652,10 @@ def main() -> int:
         "name": "mosaic_warp", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/mosaic_warp.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/mosaic_pallas.py:71",
-        "launches": warp_launches + e_yolox["mosaic_warp"],
-        "launches_e_yolox_s": e_yolox["mosaic_warp"], "max_abs_err": warp_err,
+        "launches": (warp_launches + e_yolox["mosaic_warp"]
+                     + pl["mosaic_warp"]),
+        "launches_e_yolox_s": e_yolox["mosaic_warp"],
+        "launches_parallel": pl["mosaic_warp"], "max_abs_err": warp_err,
         "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
         "bound_ms": warp_mean("bound_ms"),
         "bound_by": warp_recs["mosaic (K=4)"]["bound_by"],
@@ -4253,4 +4692,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+        sys.exit(0)
     sys.exit(main())

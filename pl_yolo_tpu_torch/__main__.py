@@ -7,6 +7,14 @@ checkpoint (`--test --ckpt <dir>`). It runs on the CUDA card and refuses to
 start where there is none, unless `--device cpu` asks for the CPU. After a
 preemption checkpoint (SIGTERM) it exits 75 (EX_TEMPFAIL), so that a restart
 wrapper relaunches it with `--resume`.
+
+Several processes train one model under torchrun:
+
+    torchrun --nproc-per-node N -m pl_yolo_tpu_torch -c <model.yaml> ...
+
+Each rank takes `cuda:{LOCAL_RANK % device_count}` (or the CPU with
+`--device cpu`) and joins the process group over NCCL, or over gloo on the
+CPU and where ranks share a card (`parallel.distributed`).
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e} (--device cpu)")
+    from .parallel import distributed
+    distributed.initialize(device=device)
     model_cfg = validate_model_config(load_config(args.model_config),
                                       args.model_config)
     data_cfg = validate_data_config(load_config(args.dataset_config),
@@ -60,7 +70,9 @@ def main(argv=None):
     else:
         trainer.fit(resume_from=args.ckpt, resume=args.resume)
         if trainer.preempted:
+            distributed.shutdown()
             raise SystemExit(75)
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

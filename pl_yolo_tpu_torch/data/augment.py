@@ -38,6 +38,7 @@ import torch
 from .. import resolve_device
 from ..ops.mosaic import (from_chw, mosaic_sample_idx, to_chw,
                           warp_sample_idx)
+from ..parallel.mesh import data_rows, gather_rows
 
 
 FILL = 114.0
@@ -395,19 +396,23 @@ def _paste_window(tiles: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor
 
 
 def _mosaic_general(draws: AugmentDraws, images: torch.Tensor,
-                    labels4: torch.Tensor, idx4: torch.Tensor):
+                    labels4: torch.Tensor, idx4: torch.Tensor,
+                    rows: slice | None = None):
     """The JAX `_mosaic_one` over the batch, for any affine: images
-    [B,H,W,3] in the pixel dtype, labels4 [B,4,M,5], idx4 [B,3] partners.
+    [B,H,W,3] in the pixel dtype, labels4 [b,4,M,5], idx4 [b,3] partners of
+    the output rows `rows` of the batch (all B when None), `draws` theirs.
     Each output pixel's window coordinates are the inverse affine of its
     own (outside the 2H x 2W window: fill). Returns (img [B,3,H,W]
     channel-major, cand [B,4M,5], valid [B,4M])."""
-    b, h, w, _ = images.shape
+    _, h, w, _ = images.shape
+    b = idx4.shape[0]
     mh, mw = h // 2, w // 2
     cx = draws.center[:, 0] + mw
     cy = draws.center[:, 1] + mh
     ox = torch.stack([cx - w, cx, cx - w, cx], dim=1).to(torch.int32)
     oy = torch.stack([cy - h, cy - h, cy, cy], dim=1).to(torch.int32)
-    tiles = torch.cat([images[:, None], images[idx4]], dim=1)
+    own = images if rows is None else images[rows]
+    tiles = torch.cat([own[:, None], images[idx4]], dim=1)
     window = _paste_window(tiles, ox, oy)
     M = _affine_matrix(draws.affine, h, w, mh, mw)
     ii, jj = torch.meshgrid(
@@ -542,7 +547,7 @@ def _chw_to_s2d(x: torch.Tensor) -> torch.Tensor:
 
 def device_augment(draws: AugmentDraws, images: torch.Tensor,
                    labels: torch.Tensor, cfg: AugmentConfig, enable=True,
-                   out_s2d: bool = False):
+                   out_s2d: bool = False, rows: slice | None = None):
     """Augment a batch: images [B,H,W,3] (uint8 or float 0..255), labels
     [B,M,5] (cls, cx, cy, w, h in pixels), `draws` from `sample_draws`.
     Returns (NHWC fp32 images, [B,max_labels,5] labels), or with `out_s2d`
@@ -551,7 +556,13 @@ def device_augment(draws: AugmentDraws, images: torch.Tensor,
     mosaic and mixup (the no-aug epochs keep HSV and flip). Runs on the
     images' device; two `mosaic_warp` calls (mosaic, mixup partner), or,
     with a rotation, shear or perspective, none: the general route samples
-    both with plain torch gathers."""
+    both with plain torch gathers.
+
+    With `rows`, the output is those rows of the batch's: the draws, images
+    and labels are the whole batch's (mosaic and mixup partners range over
+    all of it), and only the rows' own tiles are warped. A data-parallel
+    step augments the global batch so, each rank its own rows
+    (`make_augment_fn`)."""
     check_config(cfg)
     b, h, w = images.shape[:3]
     dev = images.device
@@ -561,23 +572,29 @@ def device_augment(draws: AugmentDraws, images: torch.Tensor,
     enable = torch.as_tensor(enable, device=dev).to(torch.bool)
     perm = draws.perm
     idx4 = torch.stack([torch.roll(perm, -i) for i in (1, 2, 3)], dim=1)
+    own = torch.arange(b, device=dev)[:, None]
     pool = to_chw(images)
+    all_labels = labels
+    if rows is not None:
+        # the rows' own draws; the partner indices stay global
+        draws = AugmentDraws(*(t[rows] for t in draws))
+        idx4, own, labels = idx4[rows], own[rows], labels[rows]
+        b = idx4.shape[0]
 
     mosaic = mixup = None
     if cfg.mosaic_prob > 0:
-        labels4 = torch.cat([labels[:, None], labels[idx4]], dim=1)
+        labels4 = torch.cat([labels[:, None], all_labels[idx4]], dim=1)
         if cfg.separable:
             oxw, oyw, xs_raw, ys_raw, mo_cand, mo_valid = _mosaic_geometry(
                 draws, labels4, h, w)
-            tidx = torch.cat([torch.arange(b, device=dev)[:, None], idx4],
-                             dim=1)
+            tidx = torch.cat([own, idx4], dim=1)
             mosaic = (mosaic_sample_idx(pool, tidx, oxw, oyw, xs_raw,
                                         ys_raw), mo_cand, mo_valid)
         else:
-            mosaic = _mosaic_general(draws, images, labels4, idx4)
+            mosaic = _mosaic_general(draws, images, labels4, idx4, rows)
         if cfg.mixup_prob > 0:
             mxs, mys, mix_cand, mix_v = _mixup_geometry(
-                draws, labels[draws.mix_idx], h, w)
+                draws, all_labels[draws.mix_idx], h, w)
             if cfg.separable:
                 mix_t = warp_sample_idx(pool, draws.mix_idx, mxs, mys,
                                         fill=0.0)
@@ -586,8 +603,9 @@ def device_augment(draws: AugmentDraws, images: torch.Tensor,
                                          fill=0.0).permute(0, 3, 1, 2)
             mixup = (mix_t, mix_cand, mix_v)
 
-    out, out_labels = _augment_batch(draws, pool, labels, cfg, enable,
-                                     mosaic, mixup)
+    out, out_labels = _augment_batch(
+        draws, pool if rows is None else pool[rows], labels, cfg, enable,
+        mosaic, mixup)
     if out_s2d:
         return _chw_to_s2d(out), out_labels
     nhwc = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
@@ -598,14 +616,23 @@ def device_augment(draws: AugmentDraws, images: torch.Tensor,
 def make_augment_fn(cfg: AugmentConfig, out_s2d: bool = False):
     """The train step's `augment_fn(generator, images, labels, enable=True)`
     (JAX `DataModule.make_augment_fn`): draws from `generator` (torch's
-    default one on the images' device when None), then `device_augment`."""
+    default one on the images' device when None), then `device_augment`.
+    Inside a data-parallel step (`parallel.mesh.use_layout`) it augments
+    the global batch, as the JAX package's jitted step does: the images and
+    labels are gathered over the data group, every rank draws the global
+    batch's numbers from its generator (seeded alike on every rank), and
+    each rank warps its own rows."""
     check_config(cfg)
 
     def augment(generator, images, labels, enable=True):
-        draws = sample_draws(generator, images.shape[0],
-                             tuple(images.shape[1:3]), cfg,
-                             device=images.device)
-        return device_augment(draws, images, labels, cfg, enable=enable,
-                              out_s2d=out_s2d)
+        batch, rows = data_rows(images.shape[0])
+        draws = sample_draws(generator, batch, tuple(images.shape[1:3]),
+                             cfg, device=images.device)
+        if batch == images.shape[0]:
+            return device_augment(draws, images, labels, cfg, enable=enable,
+                                  out_s2d=out_s2d)
+        return device_augment(draws, gather_rows(images),
+                              gather_rows(labels.to(images.device)), cfg,
+                              enable=enable, out_s2d=out_s2d, rows=rows)
 
     return augment

@@ -44,15 +44,21 @@ class DataModule:
     def setup(self, stage: str = "fit"):
         raise NotImplementedError
 
-    def train_loader(self, shard_id: int = 0, num_shards: int = 1) -> TrainLoader:
+    def train_loader(self, shard_id: int = 0, num_shards: int = 1,
+                     rows: slice | None = None) -> TrainLoader:
+        """The host's training stream (shard `shard_id` of `num_shards`
+        hosts); with `rows`, only those rows of each of the host's batches,
+        for one of the host's data-parallel ranks (`RowLoader`)."""
         from .aug_extra import make_host_augment
         host_aug = make_host_augment(
             self.cfg.get("transform", {}), self.dataset_train,
             self.num_classes, seed=self.seed)
-        return TrainLoader(self.dataset_train, self.train_batch_size,
-                           shard_id=shard_id, num_shards=num_shards,
-                           seed=self.seed, host_augment=host_aug,
-                           num_workers=self.num_workers)
+        kw = dict(shard_id=shard_id, num_shards=num_shards, seed=self.seed,
+                  host_augment=host_aug, num_workers=self.num_workers)
+        if rows is not None:
+            return RowLoader(self.dataset_train, self.train_batch_size, rows,
+                             **kw)
+        return TrainLoader(self.dataset_train, self.train_batch_size, **kw)
 
     def val_batches(self, shard_id: int = 0, num_shards: int = 1):
         return eval_batches(self.dataset_val, self.val_batch_size,
@@ -66,6 +72,56 @@ class DataModule:
         """The train step's `augment_fn(generator, images, labels,
         enable=True)` over this data config's transform."""
         return make_augment_fn(self.augment_cfg, out_s2d=out_s2d)
+
+
+class _RowSampler:
+    """The indices of `rows` of each `batch`-sized run of `sampler`'s."""
+
+    def __init__(self, sampler, batch: int, rows: slice):
+        self.sampler, self.batch, self.rows = sampler, batch, rows
+
+    def __iter__(self):
+        it = iter(self.sampler)
+        while True:
+            yield from [next(it) for _ in range(self.batch)][self.rows]
+
+
+class RowLoader(TrainLoader):
+    """A `TrainLoader` for one of a host's data-parallel ranks: the host's
+    index stream and batch (`batch_size` is the host's, as in the JAX
+    package), of which this rank keeps only `rows`. Together, the host's
+    ranks take exactly the batches one process takes at the seed;
+    `steps_per_epoch` is the host's.
+
+    Each rank decodes only its rows, except under host augmentation
+    (`copypaste_prob`, `cutpaste_prob`, `cutoutR_prob`): its draws are one
+    sequential stream over the host's batch, as in one process, so each
+    rank then loads and augments the whole batch and keeps its rows."""
+
+    def __init__(self, dataset, batch_size: int, rows: slice, **kw):
+        self.rows, self.host_batch = rows, batch_size
+        self.whole = kw.get("host_augment") is not None
+        super().__init__(dataset,
+                         batch_size if self.whole else rows.stop - rows.start,
+                         **kw)
+        self.steps_per_epoch = max(
+            len(dataset) // (batch_size * kw.get("num_shards", 1)), 1)
+
+    @property
+    def sampler(self):
+        if self.whole:
+            return self._host_sampler
+        return _RowSampler(self._host_sampler, self.host_batch, self.rows)
+
+    @sampler.setter
+    def sampler(self, sampler):
+        self._host_sampler = sampler
+
+    def __next__(self):
+        batch = super().__next__()
+        if not self.whole:
+            return batch
+        return {k: v[self.rows] for k, v in batch.items()}
 
 
 class COCODataModule(DataModule):

@@ -31,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import data_layout, global_batch_norm
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum = 1 - flax momentum (0.97)
 LN_EPS = 1e-6       # flax nn.LayerNorm's default
@@ -73,7 +75,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     momentum*batch`; the statistics are fp32 whatever the compute dtype.
     Eval mode and the `state_dict` keys are the base class's. With
     `update_stats` false (the recompute of a checkpointed layer), train
-    mode normalises by the batch and leaves the running statistics alone."""
+    mode normalises by the batch and leaves the running statistics alone.
+    Inside a data-parallel train step (`parallel.mesh.use_layout`, a data
+    width above 1) the batch is the global one: the statistics come from
+    every data rank's rows (`parallel.mesh.global_batch_norm`), as GSPMD
+    makes the JAX package's BatchNorm global."""
 
     def __init__(self, num_features: int, eps: float, momentum: float):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -87,6 +93,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        layout = data_layout()
+        if layout is not None:
+            y, mean, var = global_batch_norm(x, self.weight, self.bias,
+                                             self.eps, layout)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                            self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype),
+                                           self.momentum)
+                    self.num_batches_tracked += 1
+            return y
         # momentum 1 makes the fused op overwrite the scratch buffers with
         # the batch's mean and unbiased variance
         y = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight,

@@ -13,6 +13,10 @@ from their `generator` attribute (torch's default generator of the
 activations' device when None); the train step sets it for the duration of
 its forward with `dropout_generator`, the counterpart of the JAX step's
 'dropout' rng collection. Train mode only; identity in eval. NCHW.
+Inside a data-parallel train step (`parallel.mesh.use_layout`) each rank
+draws for the global batch and keeps its own rows, and DropBlock's rescale
+takes the global batch's mask mean, as the JAX package computes both on
+the global batch.
 """
 
 from __future__ import annotations
@@ -23,13 +27,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import data_layout, data_rows, data_sum
+
 
 def draw_drop_path(generator: torch.Generator | None, x: torch.Tensor,
                    rate: float) -> torch.Tensor:
     """[B,1,..,1] bool: True where a sample's branch is kept, P = 1 - rate."""
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    b, rows = data_rows(x.shape[0])
+    shape = (b,) + (1,) * (x.ndim - 1)
     u = torch.rand(shape, generator=generator, device=x.device)
-    return u < 1.0 - rate
+    return u[rows] < 1.0 - rate
 
 
 def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float
@@ -49,8 +56,9 @@ def draw_drop_block(generator: torch.Generator | None, x: torch.Tensor,
                     rate: float, block_size: int = 7) -> torch.Tensor:
     """fp32 Bernoulli(gamma) seeds shaped like x [B,C,H,W]."""
     gamma = drop_block_gamma(rate, x.shape[2], x.shape[3], block_size)
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return (u < gamma).to(torch.float32)
+    b, rows = data_rows(x.shape[0])
+    u = torch.rand((b,) + x.shape[1:], generator=generator, device=x.device)
+    return (u[rows] < gamma).to(torch.float32)
 
 
 def drop_block_2d(x: torch.Tensor, seeds: torch.Tensor, block_size: int = 7
@@ -62,7 +70,10 @@ def drop_block_2d(x: torch.Tensor, seeds: torch.Tensor, block_size: int = 7
     block = F.max_pool2d(seeds, block_size, stride=1,
                          padding=block_size // 2)
     mask = 1.0 - block
-    denom = torch.clamp(mask.mean(), min=1e-6)
+    layout = data_layout()
+    mean = (mask.mean() if layout is None
+            else data_sum(mask.sum()) / (mask.numel() * layout.data))
+    denom = torch.clamp(mean, min=1e-6)
     return x * mask / denom
 
 

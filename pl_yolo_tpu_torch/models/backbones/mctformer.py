@@ -10,7 +10,10 @@ maps; its head exists only in a module built with `cam_head=True`, as the
 `head` leaf exists only in a flax tree initialised through `classify`.
 
 The L blocks keep one stacked parameter tree (`blocks_<name>` [L, ...]),
-as in `vit.py`, and take no weight decay.
+as in `vit.py`, and take no weight decay. Under an ambient pipe width
+(`parallel: {pipeline: S}`) the detection path's tower runs as a GPipe
+(`vit.apply_tower`), without collecting the attentions, as in the JAX
+package; `classify` keeps the sequential tower.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ from torch import nn
 
 from ...layers.blocks import LayerNorm, SameConv2d
 from ...ops.resize import resize_bicubic
-from .vit import (_gelu, apply_pyramid, init_tower_, layer_norm,
-                  register_tower, simple_pyramid, tower_layer,
+from .vit import (_gelu, apply_pyramid, apply_tower, init_tower_,
+                  layer_norm, register_tower, simple_pyramid, tower_layer,
                   truncated_normal_)
 
 
@@ -61,6 +64,7 @@ class MCTformer(nn.Module):
     """DeiT-small defaults."""
 
     STEM_S2D = False  # a patch-embed stem: the trainer feeds NHWC images
+    PIPELINE_TOWER = True  # the tower takes `parallel: {pipeline: S}`
 
     def __init__(self, num_classes: int = 80, embed_dim: int = 384,
                  depth: int = 12, num_heads: int = 6, patch_size: int = 16,
@@ -98,10 +102,13 @@ class MCTformer(nn.Module):
         x = x + torch.cat([self.pos_embed_cls,
                            pos_patch.reshape(1, h * w, d)], dim=1)
         attns = []
-        for i in range(self.tower_depth):
-            x, attn = mct_block(tower_layer(self, i), x, self.num_heads)
-            if collect_attn:
+        if collect_attn:
+            for i in range(self.tower_depth):
+                x, attn = mct_block(tower_layer(self, i), x, self.num_heads)
                 attns.append(attn)
+        else:
+            x = apply_tower(self, x, lambda p, y: mct_block(
+                p, y, self.num_heads)[0], "MCTformer")
         x = self.norm(x)
         patches = x[:, ncls:].reshape(b, h, w, d)
         return (x[:, :ncls], patches,

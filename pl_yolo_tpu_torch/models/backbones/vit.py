@@ -12,9 +12,12 @@ tower does: `blocks_<name>` parameters with a leading axis L, named after
 the flax leaves, applied layer by layer by `vit_block`. They are plain
 parameters, not `nn.Linear`s, so that they take no weight decay: the JAX
 package decays only leaves named `kernel`. With `moe_experts` > 1 the FFN
-is the switch top-1 mixture of experts of `moe_ffn`. The JAX package's
-GPipe branch of the tower (`parallel: {pipeline: N}`) is not ported: the
-trainer refuses that key.
+is the switch top-1 mixture of experts of `moe_ffn`. Inside a train step
+whose layout has a pipe width S > 1 (`parallel: {pipeline: S}`), the tower
+runs as a GPipe over the pipe group (`apply_tower`,
+`parallel.pipeline.pipeline_apply`): stage s applies blocks [s·L/S,
+(s+1)·L/S) on S microbatches. The parameters, the state_dict and the
+sequential path elsewhere (init, eval, export) are unchanged.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from torch import nn
 
 from ...layers.blocks import LayerNorm, SameConv2d, get_activation
 from ...ops.resize import resize_bicubic
+from ...parallel.mesh import pipe_layout
+from ...parallel.pipeline import check_depth, pipeline_apply
 
 _gelu = get_activation("gelu")  # jax.nn.gelu: the tanh approximation
 
@@ -137,6 +142,27 @@ def tower_layer(module: nn.Module, i: int) -> dict:
     return {k: getattr(module, f"blocks_{k}")[i] for k in module.tower_spec}
 
 
+def apply_tower(module: nn.Module, x: torch.Tensor, block, what: str
+                ) -> torch.Tensor:
+    """x through `module`'s L blocks, `block(layer_params, x) -> x`: in turn,
+    or, under an ambient pipe width S > 1, as a GPipe of S stages of L/S
+    blocks (the JAX package's `_apply_tower`, with its depth check)."""
+    layout = pipe_layout()
+    depth = module.tower_depth
+    if layout is None:
+        for i in range(depth):
+            x = block(tower_layer(module, i), x)
+        return x
+    check_depth(depth, layout.pipe, what)
+    per = depth // layout.pipe
+
+    def stage(s, xm):
+        for i in range(s * per, (s + 1) * per):
+            xm = block(tower_layer(module, i), xm)
+        return xm
+    return pipeline_apply(stage, x, layout)
+
+
 def init_tower_(module: nn.Module, generator: torch.Generator) -> None:
     for name, (_, init) in module.tower_spec.items():
         param = getattr(module, f"blocks_{name}")
@@ -198,6 +224,7 @@ def apply_pyramid(module: nn.Module, feat: torch.Tensor, patch_size: int,
 
 class VisionTransformer(nn.Module):
     STEM_S2D = False  # a patch-embed stem: the trainer feeds NHWC images
+    PIPELINE_TOWER = True  # the tower takes `parallel: {pipeline: S}`
 
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, patch_size: int = 16,
@@ -223,9 +250,8 @@ class VisionTransformer(nn.Module):
         h, w = hh // p, ww // p
         x = self.patch_embed(x).permute(0, 2, 3, 1).reshape(b, h * w, d)
         x = x + resize_bicubic(self.pos_embed, h, w).reshape(1, h * w, d)
-        for i in range(self.tower_depth):
-            x = vit_block(tower_layer(self, i), x, self.num_heads,
-                          self.moe_capacity)
+        x = apply_tower(self, x, lambda p, y: vit_block(
+            p, y, self.num_heads, self.moe_capacity), "ViT")
         feat = self.norm(x).reshape(b, h, w, d).permute(0, 3, 1, 2)
         return apply_pyramid(self, feat, p, self.out_strides)
 

@@ -424,8 +424,12 @@ def build_model(cfg: dict, num_classes: int, device=None,
             raise KeyError(
                 f"Unknown {section} '{name}'. Available: {sorted(registry)}")
     # nn.Module constructors draw from the global RNG; keep it untouched
-    # and draw every kernel from the explicit generator instead.
+    # and draw every kernel from the explicit generator instead. What the
+    # constructors draw and no init below replaces (a conv's bias) comes
+    # from the global RNG seeded with `seed` inside the fork, so that one
+    # seed builds one module in every process.
     with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
         backbone = BACKBONES[b_cfg["name"]](b_cfg, dtype, input_size)
         neck = NECKS[n_cfg["name"]](n_cfg, backbone.out_channels, dtype)
         head = HEADS[h_cfg["name"]](h_cfg, num_classes, neck.out_channels,

@@ -59,8 +59,13 @@ class DecoupledHead(nn.Module):
             def m(name):
                 return getattr(self, name.format(k=k))
             x = m("stem{k}")(x)
-            cls_feat = m("cls_conv{k}_1")(m("cls_conv{k}_0")(x)).float()
-            reg_feat = m("reg_conv{k}_1")(m("reg_conv{k}_0")(x)).float()
+            # the preds in fp32 at least (a float64 model keeps float64)
+            cls_feat = m("cls_conv{k}_1")(m("cls_conv{k}_0")(x))
+            cls_feat = cls_feat.to(torch.promote_types(cls_feat.dtype,
+                                                       torch.float32))
+            reg_feat = m("reg_conv{k}_1")(m("reg_conv{k}_0")(x))
+            reg_feat = reg_feat.to(torch.promote_types(reg_feat.dtype,
+                                                       torch.float32))
             out = torch.cat([m("reg_pred{k}")(reg_feat),
                              m("obj_pred{k}")(reg_feat),
                              m("cls_pred{k}")(cls_feat)], dim=1)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ...ops.boxes import cxcywh2xyxy
 from ...ops.constant import constant
+from ...parallel.mesh import batch_mean, data_sum
 
 DEFAULT_V3_ANCHORS = (((116, 90), (156, 198), (373, 326)),
                       ((30, 61), (62, 45), (59, 119)),
@@ -147,14 +148,16 @@ def yolov3_loss(
             gt_frac, gt_cls, gt_valid, h, w, sa, num_classes,
             ignore_threshold)
 
-        loss_x = _bce(cx * mask, tx * mask).mean()
-        loss_y = _bce(cy * mask, ty * mask).mean()
-        loss_w = ((pw * mask - tw * mask) ** 2).mean()
-        loss_h = ((ph * mask - th * mask) ** 2).mean()
-        loss_conf = (_bce(conf * mask, mask).mean()
-                     + 0.5 * _bce(conf * noobj, torch.zeros_like(noobj)).mean())
+        # means and counts over the global batch (parallel.mesh)
+        loss_x = batch_mean(_bce(cx * mask, tx * mask))
+        loss_y = batch_mean(_bce(cy * mask, ty * mask))
+        loss_w = batch_mean((pw * mask - tw * mask) ** 2)
+        loss_h = batch_mean((ph * mask - th * mask) ** 2)
+        loss_conf = (batch_mean(_bce(conf * mask, mask))
+                     + 0.5 * batch_mean(_bce(conf * noobj,
+                                             torch.zeros_like(noobj))))
         # cls BCE over the positive cells only, normalized by their count
-        n_pos = mask.sum().clamp(min=1.0)
+        n_pos = data_sum(mask.sum()).clamp(min=1.0)
         loss_cls = (_bce(cls_p, tcls) * mask[..., None]).sum() / (
             n_pos * num_classes)
         total = total + (w_xy * (loss_x + loss_y) + w_wh * (loss_w + loss_h)

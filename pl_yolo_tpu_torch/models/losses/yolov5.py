@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import data_sum, global_batch
 from .yolov7 import (_bce_logits, _find_positive_candidates, _flat_index,
                      _level_means, _objectness, _positive_ciou,
                      flatten_v7_outputs, yolov7_eval_decode)
@@ -88,8 +89,9 @@ def yolov5_loss(
     box_loss = box_loss * lambda_box
     obj_loss = obj_loss * lambda_obj
     cls_loss = cls_loss * lambda_cls
-    loss = (box_loss + obj_loss + cls_loss) * B
+    # the global batch's B under data parallelism (parallel.mesh)
+    loss = (box_loss + obj_loss + cls_loss) * global_batch(B)
     return {"loss": loss, "loss_iou": box_loss, "loss_obj": obj_loss,
             "loss_cls": torch.as_tensor(cls_loss, dtype=torch.float32,
                                         device=labels.device),
-            "proportion": ok_f.sum() / gt_valid.sum().clamp(min=1)}
+            "proportion": ok_f.sum() / data_sum(gt_valid.sum()).clamp(min=1)}

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from ...ops.boxes import ciou, cxcywh2xyxy, pairwise_iou
 from ...ops.constant import constant
 from ...ops.topk import topk_lastdim
+from ...parallel.mesh import batch_mean, data_sum
 
 INVALID_PENALTY = 1e9
 DEFAULT_V7_ANCHORS = (((12, 16), (19, 36), (40, 28)),
@@ -265,7 +266,8 @@ def _objectness(d: V7Decode, flat_idx, iou, pos_f, balance):
     obj_loss = 0.0
     start = 0
     for i, sz in enumerate(d.level_sizes):
-        obj_loss = obj_loss + obj_bce[:, start:start + sz].mean() * balance[i]
+        obj_loss = (obj_loss
+                    + batch_mean(obj_bce[:, start:start + sz]) * balance[i])
         start += sz
     return obj_loss
 
@@ -273,11 +275,11 @@ def _objectness(d: V7Decode, flat_idx, iou, pos_f, balance):
 def _level_means(values, level_ids, pos_f, n_levels, denom_scale=1.0):
     """sum over levels of mean(values) over that level's positives (0 for a
     level without positives); the mean's count is scaled by
-    `denom_scale`."""
+    `denom_scale`. The counts are the global batch's (parallel.mesh)."""
     total = 0.0
     for i in range(n_levels):
         lvl = (level_ids == i).to(torch.float32) * pos_f
-        n = lvl.sum()
+        n = data_sum(lvl.sum())
         total = total + torch.where(
             n > 0, (values * lvl).sum() / (n * denom_scale).clamp(min=1.0),
             0.0)
@@ -344,4 +346,5 @@ def yolov7_loss(
     loss = box_loss + obj_loss + cls_loss
     return {"loss": loss, "loss_iou": box_loss, "loss_obj": obj_loss,
             "loss_cls": cls_loss,
-            "proportion": fg_f.sum() / gt_valid.sum().clamp(min=1)}
+            "proportion": (fg_f.sum()
+                           / data_sum(gt_valid.sum()).clamp(min=1))}

@@ -37,6 +37,7 @@ from ...ops.boxes import cxcywh2xyxy, iou_loss, pairwise_iou
 from ...ops.cuda.simota import CENTER_PENALTY, INVALID_PENALTY
 from ...ops.simota import simota_assign_fused
 from ...ops.topk import topk_lastdim
+from ...parallel.mesh import data_sum
 
 
 class DecodeOut(NamedTuple):
@@ -52,7 +53,8 @@ def yolox_decode(outputs: Sequence[torch.Tensor],
     """Decode per-level NHWC head maps [B,H,W,5+C] into flat predictions."""
     preds, oris, xs, ys, ss = [], [], [], [], []
     for level, stride in zip(outputs, strides):
-        level = level.float()
+        # fp32 at least (a float64 model keeps float64)
+        level = level.to(torch.promote_types(level.dtype, torch.float32))
         b, h, w, c = level.shape
         flat = level.reshape(b, h * w, c)
         gy, gx = torch.meshgrid(
@@ -315,8 +317,10 @@ def yolox_loss(
                 d.x_shifts, d.y_shifts, d.strides, chunk=assign_chunk)
 
     fg = assign.fg_mask.to(torch.float32)                      # [B, A]
-    num_fgs = assign.num_fg.sum().clamp(min=1.0)
-    num_gts = assign.num_gt.sum().clamp(min=1.0)
+    # global counts: under data parallelism each rank's loss is its share
+    # of the global batch's (parallel.mesh)
+    num_fgs = data_sum(assign.num_fg.sum()).clamp(min=1.0)
+    num_gts = data_sum(assign.num_gt.sum()).clamp(min=1.0)
 
     batch = torch.arange(labels.shape[0], device=labels.device)[:, None]
     reg_targets = gt_boxes[batch, assign.matched_gt]           # [B, A, 4]

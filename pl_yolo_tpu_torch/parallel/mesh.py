@@ -1,0 +1,205 @@
+"""The world as data x pipe process groups, the ZeRO rules, and the ambient
+layout of a train step (port of the data / pipe / ZeRO part of
+`pl_yolo_tpu/parallel/mesh.py`).
+
+`Layout(data, pipe)` lays the world out rank-major, as `make_mesh` lays out
+its (data, pipe) devices: rank = d * pipe + p. The ranks with the same pipe
+index p form a data group (they hold different rows of the batch and
+all-reduce their gradients); the ranks with the same data index d form a
+pipe group (they hold the same rows and run the stages of one GPipe).
+
+The step activates its layout around the augmentation, the forward and the
+loss (`use_layout`), the same idiom as `use_pipeline_mesh` and
+`set_compute_dtype`: modules deep in the model read it instead of taking it
+as an argument.
+
+  * `BatchNorm2d` in train mode normalises over the data group's rows
+    (`global_batch_norm`): one differentiable all-reduce of the per-channel
+    sum, sum of squares and count; flax's E[x²] - E[x]² makes that exact.
+  * The losses divide their partial sums by global counts (`data_sum`,
+    `batch_mean`, `global_batch`): each rank's loss is its share of the
+    loss of the global batch, so the gradients are summed, not averaged.
+  * The augmentation draws for the global batch and warps its own rows
+    (`data_rows`); so do DropBlock and DropPath.
+  * The ViT and MCTformer towers run as a GPipe over the pipe group.
+
+Outside the context, or with a data and pipe width of 1, every helper here
+is the identity and every path is the single-process one, bit for bit.
+
+ZeRO (`parallel: {zero: true|3}`, `zero_spec`): level 1 shards the
+optimizer moments, the accumulation buffer and the EMA copy over the data
+group, level 3 the parameters too; a tensor shards along dim 0 where the
+data width divides it, and stays replicated where it does not. BatchNorm
+statistics stay replicated.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.distributed as dist
+
+from . import collectives
+
+
+class Layout:
+    """The world as `data` x `pipe` process groups. Every rank must build
+    it, in the same order, since it creates the groups (`new_group` is a
+    collective call). `data_group` / `pipe_group` are this rank's; the
+    `*_ranks` lists hold their global ranks."""
+
+    def __init__(self, data: int, pipe: int = 1):
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if data * pipe != world:
+            raise ValueError(f"layout {data} x {pipe} (data x pipe) != "
+                             f"{world} processes")
+        self.data, self.pipe, self.rank, self.world = data, pipe, rank, world
+        self.data_index, self.pipe_index = divmod(rank, pipe)
+        # one process: the default group (None), of rank 0 alone
+        self.data_group = self.pipe_group = None
+        self.data_ranks = self.pipe_ranks = [rank]
+        if world > 1:
+            for p in range(pipe):
+                ranks = [d * pipe + p for d in range(data)]
+                group = dist.new_group(ranks)
+                if p == self.pipe_index:
+                    self.data_group, self.data_ranks = group, ranks
+            for d in range(data):
+                ranks = [d * pipe + p for p in range(pipe)]
+                group = dist.new_group(ranks)
+                if d == self.data_index:
+                    self.pipe_group, self.pipe_ranks = group, ranks
+
+    @property
+    def world_group(self):
+        return dist.group.WORLD
+
+
+# ----------------------------------------------------------------- ZeRO
+
+def zero_spec(kind: str, shape: tuple, data_size: int, level: int
+              ) -> int | None:
+    """The dim a tensor of ZeRO state shards along over the data group, or
+    None (replicated). `kind` is "opt_state" (moments, the accumulation
+    buffer), "ema" (the EMA copy of params and BN statistics), "params" or
+    "batch_stats". Level 1 shards "opt_state" and "ema"; level 3 also
+    "params". A tensor shards along dim 0 when the data width divides it
+    (any tensor, at a width of 1, as the JAX rule does: one shard)."""
+    roots = (("opt_state", "ema", "params") if level >= 3
+             else ("opt_state", "ema"))
+    if level <= 0 or kind not in roots:
+        return None
+    if len(shape) >= 1 and shape[0] % data_size == 0 and shape[0] > 0:
+        return 0
+    return None
+
+
+# ------------------------------------------------------- the ambient layout
+
+_LAYOUT: list = [None]
+
+
+class use_layout(contextlib.ContextDecorator):
+    """Inside, the helpers below and the modules that call them read
+    `layout`; a layout with one rank, or None, leaves the single-process
+    path."""
+
+    def __init__(self, layout: Layout | None):
+        if layout is not None and layout.world <= 1:
+            layout = None
+        self._layout = layout
+
+    def __enter__(self):
+        self._prev = _LAYOUT[0]
+        _LAYOUT[0] = self._layout
+        return self
+
+    def __exit__(self, *exc):
+        _LAYOUT[0] = self._prev
+        return False
+
+
+def data_layout() -> Layout | None:
+    """The ambient layout if its data width is above 1, else None."""
+    layout = _LAYOUT[0]
+    return layout if layout is not None and layout.data > 1 else None
+
+
+def pipe_layout() -> Layout | None:
+    """The ambient layout if its pipe width is above 1, else None."""
+    layout = _LAYOUT[0]
+    return layout if layout is not None and layout.pipe > 1 else None
+
+
+def data_sum(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the data group (detached: a count or a normaliser);
+    t itself outside a data-parallel step."""
+    layout = data_layout()
+    if layout is None:
+        return t
+    out = t.detach().clone()
+    return collectives.all_reduce_(out, layout.data_group)
+
+
+def global_batch(b: int) -> int:
+    """The global batch of a rank that holds `b` rows (every data rank
+    holds as many)."""
+    layout = data_layout()
+    return b if layout is None else b * layout.data
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """t.mean() over the global batch, as this rank's share: the sum of its
+    elements over the global element count (t.mean() outside a
+    data-parallel step)."""
+    layout = data_layout()
+    if layout is None:
+        return t.mean()
+    return t.sum() / (t.numel() * layout.data)
+
+
+def data_rows(b: int) -> tuple[int, slice]:
+    """(the global batch, this rank's rows of it) for a rank holding `b`
+    rows: data rank d holds rows [d·b, (d+1)·b)."""
+    layout = data_layout()
+    if layout is None:
+        return b, slice(0, b)
+    start = layout.data_index * b
+    return b * layout.data, slice(start, start + b)
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The data group's rows of t, concatenated in data-rank order (t
+    itself outside a data-parallel step)."""
+    layout = data_layout()
+    if layout is None:
+        return t
+    return collectives.all_gather_dim0(t, layout.data_group)
+
+
+def global_batch_norm(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, eps: float, layout: Layout
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm of NCHW x over the data group's rows: the
+    per-channel sum, sum of squares and count all-reduced in one
+    differentiable call, mean = S/N, biased var = max(Q/N - mean², 0) (flax's
+    fast variance), y = (x - mean)·rsqrt(var + eps)·weight + bias in fp32
+    (float64 for a float64 x), cast back to x's dtype. Returns (y, mean,
+    var), the statistics detached."""
+    c = x.shape[1]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dims = [d for d in range(x.ndim) if d != 1]
+    count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+    stats = collectives.all_reduce_sum(
+        torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]),
+        layout.data_group)
+    n = stats[2 * c]
+    mean = stats[:c] / n
+    var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    scale = torch.rsqrt(var + eps) * weight.to(xf.dtype)
+    y = (xf - mean.reshape(shape)) * scale.reshape(shape) \
+        + bias.to(xf.dtype).reshape(shape)
+    return y.to(x.dtype), mean.detach(), var.detach()

@@ -40,12 +40,17 @@ def _decay_split(module: nn.Module) -> tuple[list, list]:
             [p for p in params if id(p) not in decay_ids])
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> None:
     """optax's rule, in place and without a host sync: a global norm below
     `max_norm` leaves the gradients alone, else g <- (g / norm) * max_norm
-    (torch's `clip_grad_norm_` scales by max_norm / (norm + 1e-6) instead)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    (torch's `clip_grad_norm_` scales by max_norm / (norm + 1e-6) instead).
+    `norm` is the gradients' global norm where they are shards of it (ZeRO),
+    else it is theirs."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.to(torch.promote_types(
+                g.dtype, torch.float32))) for g in grads]))
     small = norm < max_norm
     divisor = torch.where(small, 1.0, norm)
     factor = torch.where(small, 1.0, max_norm)
@@ -53,11 +58,15 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
         g.div_(divisor.to(g.dtype)).mul_(factor.to(g.dtype))
 
 
-def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int
+def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int,
+                    param_view: Callable | None = None,
+                    global_norm: Callable | None = None
                     ) -> tuple[torch.optim.Optimizer, Callable[[int], float]]:
     """Create (optimizer over `module`'s parameters, schedule fn) from the
     model-yaml optimizer section. The optimizer lives where the module's
-    parameters live."""
+    parameters live. Under ZeRO (`parallel.zero`) it holds `param_view(p)`,
+    this rank's shard of each parameter, in the parameters' order, and
+    clips by `global_norm()`, the norm of the whole gradient."""
     name = opt_cfg.get("name", "SGD").lower()
     lr = float(opt_cfg.get("learning_rate", 0.01))
     accum = int(opt_cfg.get("accumulate_steps", 1))
@@ -70,6 +79,9 @@ def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int
     wd = float(opt_cfg.get("weight_decay", 0.0))
     clip = float(opt_cfg.get("clip_grad_norm", 0.0))
     decay, no_decay = _decay_split(module)
+    if param_view is not None:
+        decay = [param_view(p) for p in decay]
+        no_decay = [param_view(p) for p in no_decay]
     groups = [{"params": decay, "weight_decay": wd},
               {"params": no_decay, "weight_decay": 0.0}]
     lr0 = schedule(0)
@@ -91,7 +103,8 @@ def build_optimizer(module: nn.Module, opt_cfg: dict, total_steps: int
         if clip > 0:
             clip_by_global_norm_(
                 [p.grad for g in opt.param_groups for p in g["params"]
-                 if p.grad is not None], clip)
+                 if p.grad is not None], clip,
+                None if global_norm is None else global_norm())
         for g in opt.param_groups:
             g["lr"] = schedule(opt.updates)
         opt.updates += 1

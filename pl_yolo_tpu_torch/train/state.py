@@ -10,6 +10,13 @@ here the state is mutable and a step updates it in place: the module's
 parameters and BatchNorm statistics, the optimizer's moments, the step count
 and the EMA copy. The step runs on the device the module lives on and moves
 its inputs there.
+
+Several processes train one model through a `parallel.zero.DataParallel`
+engine in the state (`TrainState.parallel`): the step then runs under its
+layout (global BatchNorm, losses and augmentation, GPipe towers; see
+`parallel.mesh`), reduces the gradients over the data group, and under
+ZeRO updates its shards of the parameters and of the EMA only. Without an
+engine the step is the single-process one.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from torch import nn
 
 from ..layers.drops import dropout_generator
+from ..parallel.mesh import use_layout
 from .ema import ema_update
 
 
@@ -32,18 +40,33 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int                         # updates taken
     ema_module: nn.Module | None      # EMA of params and BN stats, eval mode
+    # the data-parallel engine of a multi-process run (parallel.zero); under
+    # ZeRO it keeps the EMA as shards, and ema_module is None
+    parallel: object | None = None
 
     @classmethod
     def create(cls, module: nn.Module, optimizer: torch.optim.Optimizer,
-               use_ema: bool = True) -> "TrainState":
+               use_ema: bool = True, parallel=None) -> "TrainState":
         ema = None
-        if use_ema:
+        if use_ema and (parallel is None or not parallel.zero):
             ema = copy.deepcopy(module).eval().requires_grad_(False)
-        return cls(module=module, optimizer=optimizer, step=0, ema_module=ema)
+        if parallel is not None:
+            parallel.attach(optimizer)
+        return cls(module=module, optimizer=optimizer, step=0,
+                   ema_module=ema, parallel=parallel)
+
+    @property
+    def sharded_ema(self) -> bool:
+        """True when the EMA copy lives as ZeRO shards in the engine."""
+        return (self.parallel is not None
+                and self.parallel.ema_entries is not None)
 
     @property
     def eval_module(self) -> nn.Module:
-        """The module for validation: the EMA copy if there is one."""
+        """The module for validation: the EMA copy if there is one (under
+        ZeRO gathered from its shards: a collective call)."""
+        if self.sharded_ema:
+            return self.parallel.eval_module()
         return self.module if self.ema_module is None else self.ema_module
 
     @property
@@ -104,7 +127,16 @@ def make_train_step(
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator | None = None, aug_enable=None,
              use_l1=None) -> dict[str, torch.Tensor]:
-        module = state.module
+        par = state.parallel
+        if par is None:
+            return one_step(state, images, labels, generator, aug_enable,
+                            use_l1)
+        with use_layout(par.layout):
+            return one_step(state, images, labels, generator, aug_enable,
+                            use_l1)
+
+    def one_step(state, images, labels, generator, aug_enable, use_l1):
+        module, par = state.module, state.parallel
         device = next(module.parameters()).device
         images, labels = images.to(device), labels.to(device)
         if augment_fn is not None:
@@ -117,6 +149,8 @@ def make_train_step(
             images = images.to(torch.float32)
 
         module.train()
+        if par is not None:
+            par.before_forward()
         with dropout_generator(module, generator):
             outputs = (module(images) if apply_fn is None
                        else apply_fn(module, images))
@@ -127,15 +161,25 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         losses = {k: v.detach() for k, v in losses.items()}
-        if sanitize:
+        if par is not None:
+            par.reduce_grads()
+            losses = par.sum_losses(losses)
+        if sanitize and par is not None and par.zero:
+            losses["grad_norm"], losses["nonfinite_grads"] = \
+                par.grad_health()
+        elif sanitize:
             grads = [p.grad for p in module.parameters() if p.grad is not None]
             losses["grad_norm"] = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g.float()) for g in grads]))
             losses["nonfinite_grads"] = torch.stack(
                 [(~torch.isfinite(g)).sum() for g in grads]).sum().float()
         state.optimizer.step()
+        if par is not None:
+            par.after_update()
         state.step += 1
-        if use_ema and state.ema_module is not None:
+        if use_ema and state.sharded_ema:
+            par.ema_update(state.step, ema_decay)
+        elif use_ema and state.ema_module is not None:
             ema_update(state.ema_module, module, state.step, ema_decay)
         return losses
 

@@ -13,8 +13,17 @@
     VOC metrics.
 
 Everything runs on one `torch.device` (the CUDA card unless `device="cpu"`)
-in one process. Config keys whose machinery is not ported raise
-`NotImplementedError` naming the ROADMAP item that brings it.
+in each process. Under torchrun (`parallel.distributed.initialize` first)
+the processes train one model, as the JAX package's devices do: data
+parallelism by default, with global BatchNorm, losses and augmentation
+(`parallel.mesh`); ZeRO-1 / ZeRO-3 with the model yaml's `parallel: {zero:
+true|3}`; a GPipe over the ViT / MCTformer towers with `parallel:
+{pipeline: S}`. The data yaml's batch size is a host's, split over the
+host's data ranks; each rank loads its own rows and validates its share of
+the images, whose detections rank 0 evaluates. Rank 0 alone logs and writes
+checkpoints, in the single-process format (ZeRO state gathered first).
+Config keys whose machinery is not ported raise `NotImplementedError`
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -28,6 +37,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import distributed
+from ..parallel.mesh import Layout
+from ..parallel.zero import DataParallel
 from ..data.augment import AugmentConfig, check_config, multiscale_resize
 from ..data.datamodule import DataModule, build_data
 from ..data.loader import device_prefetch
@@ -48,13 +60,15 @@ from .state import TrainState, make_eval_step, make_train_step
 def check_ported(model_cfg: dict, data_cfg: dict) -> None:
     """Raise on config keys whose machinery the port does not have yet."""
     par = model_cfg.get("parallel", {}) or {}
-    wide = {k: int(par[k]) for k in ("model", "spatial", "pipeline", "expert")
+    wide = {k: int(par[k]) for k in ("model", "spatial", "expert")
             if int(par.get(k, 1)) > 1}
-    if wide or par.get("zero"):
+    if wide:
         raise NotImplementedError(
-            f"parallel: {par} needs model, spatial, pipeline or expert "
-            "parallelism or ZeRO, which are not ported yet (ROADMAP queue "
-            "A, item 12); the port trains on one device")
+            f"parallel: {par} needs tensor, spatial or expert parallelism, "
+            "which is not ported yet (ROADMAP queue A, item 12b); the port "
+            "takes data parallelism, `zero: true|3` and `pipeline: N`")
+    if par.get("zero") not in (None, False, True, 0, 1, 3):
+        raise ValueError(f"parallel.zero={par['zero']!r}: take true or 3")
     t_cfg = data_cfg.get("transform", {}) or {}
     check_config(AugmentConfig.from_dict(t_cfg))  # use_pallas
 
@@ -71,6 +85,32 @@ def finite_detections(json_list: list, before: str) -> list:
                       f"detections before {before}", RuntimeWarning,
                       stacklevel=2)
     return finite
+
+
+class _Quiet:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log_hyperparams(self, params: dict):
+        pass
+
+    def log_metrics(self, metrics: dict, step: int):
+        pass
+
+    def finalize(self):
+        pass
+
+
+def _gather_in_order(*lists: tuple[list, list]) -> list[list]:
+    """Every rank's (positions, items) lists gathered, and each merged in
+    the order of the positions (the one-process order of the images)."""
+    gathered = distributed.all_gather_host(lists)
+    out = []
+    for i in range(len(lists)):
+        pairs = [(p, k, item) for rank in gathered
+                 for k, (p, item) in enumerate(zip(*rank[i]))]
+        out.append([item for _, _, item in sorted(
+            pairs, key=lambda t: (t[0], t[1]))])
+    return out
 
 
 class Trainer:
@@ -91,7 +131,10 @@ class Trainer:
         device=None,
     ):
         check_ported(model_cfg, data_cfg)
-        self.device = resolve_device(device)
+        self.rank, self.world = distributed.world()
+        self.device = (distributed.rank_device(device) if self.world > 1
+                       else resolve_device(device))
+        self.main = distributed.is_main_process()
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.max_epochs = max_epochs
@@ -101,8 +144,10 @@ class Trainer:
         self.sanitize = sanitize
         name = experiment_name or model_cfg.get("name", "exp")
         self.out_dir = Path(output_dir) / name
-        self.out_dir.mkdir(parents=True, exist_ok=True)
-        self.logger = build_logger(logger, self.out_dir, "logs")
+        if self.main:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.logger = (build_logger(logger, self.out_dir, "logs")
+                       if self.main else _Quiet())
 
         self.datamodule: DataModule = build_data(data_cfg, seed=seed,
                                                  cache=cache_images)
@@ -110,8 +155,10 @@ class Trainer:
         self.model: DetectionModel = build_model(
             model_cfg, self.num_classes, device=self.device, seed=seed,
             input_size=tuple(self.datamodule.train_size))
-        self.ckpt = CheckpointManager(self.out_dir / "checkpoints",
-                                      max_to_keep=save_top_k, monitor="mAP")
+        self.layout = self._check_parallel()
+        self.ckpt = (CheckpointManager(self.out_dir / "checkpoints",
+                                       max_to_keep=save_top_k, monitor="mAP")
+                     if self.main else None)
 
         self.state: TrainState | None = None
         self.best_map = 0.0
@@ -122,7 +169,57 @@ class Trainer:
         # "detections", "infer_s", "nms_s" (means a batch after the first),
         # "format_s", "coco_eval_s" (totals)}
         self.eval_times: dict = {}
+        self.detections: list = []   # the last validation's, COCO dicts
         self._preempted = False
+
+    def _check_parallel(self) -> Layout | None:
+        """The `parallel:` checks of the JAX trainer (its messages), and the
+        layout of the world: data x pipe, None in one process."""
+        par = self.model_cfg.get("parallel", {}) or {}
+        self.pipe_par = int(par.get("pipeline", 1))
+        self.zero_par = 3 if par.get("zero") == 3 else int(bool(
+            par.get("zero")))
+        if self.world % self.pipe_par:
+            raise ValueError(
+                f"parallel.model=1 x parallel.spatial=1 x parallel.pipeline="
+                f"{self.pipe_par} x parallel.expert=1 must divide the device "
+                f"count {self.world}")
+        # the data-parallel width of a host: the batch size is a host's
+        local = distributed.host_info()[3]
+        data_par = max(local // self.pipe_par, 1)
+        bs = self.datamodule.train_batch_size
+        if self.pipe_par > 1:
+            backbone = type(self.model.module.backbone)
+            if not getattr(backbone, "PIPELINE_TOWER", False):
+                raise ValueError(
+                    f"parallel.pipeline={self.pipe_par} but backbone "
+                    f"{backbone.__name__} has no uniform block tower "
+                    "(PIPELINE_TOWER) — use a ViT-family backbone or drop "
+                    "the key")
+            if bs % self.pipe_par or (bs // self.pipe_par) % data_par:
+                raise ValueError(
+                    f"batch_size={bs} must split into "
+                    f"parallel.pipeline={self.pipe_par} microbatches whose "
+                    f"rows divide the data-parallel width {data_par}")
+        if bs % data_par != 0:
+            raise ValueError(
+                f"train batch_size={bs} must be divisible by the data-"
+                f"parallel width {data_par}; raise the batch or shrink the "
+                f"slice (e.g. batch "
+                f"{bs * data_par if bs < data_par else bs - bs % data_par})")
+        self.data_par = data_par
+        if self.world == 1:
+            return None
+        return Layout(self.world // self.pipe_par, self.pipe_par)
+
+    def _rows(self) -> slice | None:
+        """This rank's rows of its host's batch, None in one process."""
+        if self.layout is None:
+            return None
+        local_rank = distributed.host_info()[2]
+        n = self.datamodule.train_batch_size // self.data_par
+        start = (local_rank // self.pipe_par) * n
+        return slice(start, start + n)
 
     @property
     def preempted(self) -> bool:
@@ -138,10 +235,15 @@ class Trainer:
     # ------------------------------------------------------------------ fit
 
     def _build_state(self, total_steps: int) -> TrainState:
+        engine = None
+        if self.layout is not None:
+            engine = DataParallel(self.model.module, self.layout,
+                                  zero=self.zero_par, use_ema=self.use_ema)
         optimizer, self._schedule = build_optimizer(
-            self.model.module, self.model_cfg["optimizer"], total_steps)
+            self.model.module, self.model_cfg["optimizer"], total_steps,
+            **(engine.optimizer_views() if engine is not None else {}))
         return TrainState.create(self.model.module, optimizer,
-                                 use_ema=self.use_ema)
+                                 use_ema=self.use_ema, parallel=engine)
 
     def make_step(self, out_hw: tuple[int, int] | None = None):
         """The train step `fit` runs, `step(state, images, labels,
@@ -226,7 +328,10 @@ class Trainer:
 
     def _fit(self, resume_from: str | None, resume: bool):
         self.datamodule.setup("fit")
-        loader = self.datamodule.train_loader()
+        host, hosts = distributed.host_info()[:2]
+        loader = (self.datamodule.train_loader() if self.layout is None
+                  else self.datamodule.train_loader(host, hosts,
+                                                    self._rows()))
         # the host->device copies run two batches ahead on their own thread
         batches = device_prefetch(loader, self.device, threaded=True)
         try:
@@ -245,9 +350,14 @@ class Trainer:
         if resume_from or resume:
             start_epoch = self._restore(resume_from, resume)
 
+        if self.state.parallel is not None:
+            self.state.parallel.gather_params()
         n_params, flops, summary = model_summary(
             self.model.module, input_size=self.datamodule.train_size)
-        print(summary)
+        if self.state.parallel is not None:
+            self.state.parallel.release_params()
+        if self.main:
+            print(summary)
         self.logger.log_hyperparams(
             {"model": self.model_cfg, "data": self.data_cfg,
              "params": n_params, "flops": flops})
@@ -260,7 +370,8 @@ class Trainer:
         step_fn = step_fns[0]
         accum = int(self.model_cfg.get("optimizer", {})
                     .get("accumulate_steps", 1))
-        # one generator on the device for every augmentation draw
+        # one generator on the device for every augmentation draw, seeded
+        # alike on every rank: each draws the global batch's numbers
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.seed + 1)
         batch_size = self.datamodule.train_batch_size
@@ -268,13 +379,16 @@ class Trainer:
         # host-side step counter, from the restored step: the logged LR
         # continues the schedule, and reading it never syncs
         step = int(self.state.step)
+        # several ranks stop at one step, whichever the signal reached
+        stop = distributed.StopFlag() if self.layout is not None else None
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.perf_counter()
             waited = 0.0
             losses = None
             flags = self.epoch_flags(epoch)
-            if flags and (epoch == start_epoch
-                          or flags != self.epoch_flags(epoch - 1)):
+            if self.main and flags and (epoch == start_epoch
+                                        or flags != self.epoch_flags(
+                                            epoch - 1)):
                 print(f"[trainer] epoch {epoch}: mosaic/mixup "
                       f"{'on' if flags['aug_enable'] else 'OFF'}, "
                       f"L1 {'on' if flags['use_l1'] else 'off'}")
@@ -307,7 +421,11 @@ class Trainer:
                             f"non-finite loss at step {step}: {metrics}"
                             " — debug checkpoint saved; rerun with"
                             " --debug_nans to locate the op")
-                if self._preempted:
+                if (stop.vote(self._preempted) if stop is not None
+                        else self._preempted):
+                    if stop is not None:
+                        stop.settle()
+                    self._preempted = True
                     self._save({"mAP": self.best_map, "preempted": 1.0})
                     print(f"[trainer] preemption checkpoint at step "
                           f"{step}; resume with --resume", flush=True)
@@ -328,9 +446,11 @@ class Trainer:
             ips = n_steps * batch_size / dt
             # the loop's time without its waits for the loader's next batch
             step_ips = n_steps * batch_size / max(dt - waited, 1e-9)
-            print(f"epoch {epoch}: {dt:.1f}s ({ips:.1f} img/s) "
-                  f"loss={last_loss:.3f}; {step_ips:.1f} img/s without the "
-                  f"{waited:.2f}s spent waiting for the loader", flush=True)
+            if self.main:
+                print(f"epoch {epoch}: {dt:.1f}s ({ips:.1f} img/s) "
+                      f"loss={last_loss:.3f}; {step_ips:.1f} img/s without "
+                      f"the {waited:.2f}s spent waiting for the loader",
+                      flush=True)
             self.logger.log_metrics(
                 {"loss_epoch": last_loss, "epoch_img_s": ips,
                  "step_img_s": step_ips, "loader_wait_s": waited}, step)
@@ -342,9 +462,15 @@ class Trainer:
                 if ap > self.best_map:
                     self.best_map, self.best_map50 = ap, ap50
                 self._save({"mAP": ap, "mAP50": ap50})
-        self.ckpt.wait()
-        print(f"Best mAP = {self.best_map:.3f}, "
-              f"best mAP50 = {self.best_map50:.3f}")
+        if stop is not None:
+            # a signal after the last step's vote: every rank ends with
+            # the same `preempted`
+            stop.vote(self._preempted)
+            self._preempted = stop.settle()
+        if self.main:
+            self.ckpt.wait()
+            print(f"Best mAP = {self.best_map:.3f}, "
+                  f"best mAP50 = {self.best_map50:.3f}")
         self.logger.finalize()
 
     # ------------------------------------------------------------ val/test
@@ -355,6 +481,9 @@ class Trainer:
         eval_fn = make_eval_step(self.model.loss.eval_decode)
         json_list, det_list = [], []
         infer_t, nms_t, format_s = [], [], 0.0
+        # each image's place in the one-process order: this rank walks the
+        # images rank, rank + world, ... (`eval_batches`)
+        json_pos, det_pos, seen = [], [], 0
         for batch in batches:
             t0 = time.perf_counter()
             preds = eval_fn(module, torch.from_numpy(batch["images"]))
@@ -371,18 +500,29 @@ class Trainer:
                 self.datamodule.val_size, dataset.class_ids,
                 self.num_classes, count=batch.get("count"))
             format_s += time.perf_counter() - t2
+            count = batch.get("count", len(batch["img_id"]))
+            pos = {int(i): self.rank + (seen + k) * self.world
+                   for k, i in enumerate(batch["img_id"][:count])}
+            json_pos += [pos[d["image_id"]] for d in jl]
+            det_pos += [self.rank + (seen + k) * self.world
+                        for k in range(len(dl))]
+            seen += count
             json_list += jl
             det_list += dl
+        if self.world > 1:
+            json_list, det_list = _gather_in_order(
+                (json_pos, json_list), (det_pos, det_list))
         n = len(infer_t)
         if n > 1:  # the first batch's warm-up stays out of the average
             infer_t, nms_t = infer_t[1:], nms_t[1:]
-        print("The average inference time is %.4fs, nms time is %.4fs"
-              % (float(np.mean(infer_t)), float(np.mean(nms_t))))
+        if self.main:
+            print("The average inference time is %.4fs, nms time is %.4fs"
+                  % (float(np.mean(infer_t)), float(np.mean(nms_t))))
         self.eval_times = {"batches": n, "detections": len(json_list),
                            "infer_s": float(np.mean(infer_t)),
                            "nms_s": float(np.mean(nms_t)),
                            "format_s": format_s}
-        if visualize and dataset is not None:
+        if visualize and dataset is not None and self.main:
             n = coco_visualization(finite_detections(json_list, "drawing"),
                                    dataset, out_dir=show_dir,
                                    score_thr=show_score_thr,
@@ -391,11 +531,18 @@ class Trainer:
         return json_list, det_list
 
     def _evaluate(self, json_list, dataset):
-        t0 = time.perf_counter()
-        ap, ap50, summary = coco_evaluator(json_list, dataset)
-        self.eval_times["coco_eval_s"] = time.perf_counter() - t0
-        print(summary)
-        print(f"mAP = {ap:.4f}, mAP50 = {ap50:.4f}")
+        """COCO evaluation of every rank's detections, on rank 0; every
+        rank returns its (mAP, mAP50)."""
+        if self.main:
+            t0 = time.perf_counter()
+            ap, ap50, summary = coco_evaluator(json_list, dataset)
+            self.eval_times["coco_eval_s"] = time.perf_counter() - t0
+            print(summary)
+            print(f"mAP = {ap:.4f}, mAP50 = {ap50:.4f}")
+        else:
+            ap = ap50 = None
+        if self.world > 1:
+            ap, ap50 = distributed.all_gather_host((ap, ap50))[0]
         return ap, ap50
 
     def validate(self, conf: float = 0.01, nms: float = 0.65):
@@ -404,8 +551,10 @@ class Trainer:
         dataset = self.datamodule.dataset_val
         assert self.state is not None, "fit() or load a checkpoint first"
         json_list, _ = self._run_eval(
-            self.datamodule.val_batches(), self.state.eval_module, conf, nms,
-            dataset=dataset)
+            self.datamodule.val_batches(*distributed.shard_info()),
+            self.state.eval_module, conf, nms, dataset=dataset)
+        # every rank's detections, in the one-process order
+        self.detections = json_list
         return self._evaluate(json_list, dataset)
 
     def test(self, conf: float = 0.01, nms: float = 0.65,
@@ -414,11 +563,12 @@ class Trainer:
         self.datamodule.setup("test")
         dataset = self.datamodule.dataset_test
         json_list, det_list = self._run_eval(
-            self.datamodule.test_batches(), self.state.eval_module, conf, nms,
+            self.datamodule.test_batches(*distributed.shard_info()),
+            self.state.eval_module, conf, nms,
             visualize=visualize, show_dir=show_dir,
             show_score_thr=show_score_thr, dataset=dataset)
         ap, ap50 = self._evaluate(json_list, dataset)
-        if use_voc:
+        if use_voc and self.main:
             gt_list = dataset.gt_per_class(self.num_classes)
             voc_map, report = voc_evaluator(
                 det_list, gt_list, class_names=self.datamodule.class_names)
@@ -428,7 +578,15 @@ class Trainer:
     # --------------------------------------------------------- checkpoints
 
     def _ckpt_tree(self) -> dict:
+        """The state in the single-process format (under ZeRO gathered
+        from the ranks' shards: a collective call)."""
         s = self.state
+        par = s.parallel
+        if par is not None and par.zero:
+            return {"step": s.step, "module": par.module_state_dict(),
+                    "ema_module": (par.ema_state_dict() if s.sharded_ema
+                                   else None),
+                    "optimizer": par.optimizer_state_dict()}
         return {
             "step": s.step, "module": s.module.state_dict(),
             "ema_module": (None if s.ema_module is None
@@ -437,22 +595,38 @@ class Trainer:
         }
 
     def _save(self, metrics: dict):
-        self.ckpt.save(self.state.step, self._ckpt_tree(), metrics)
+        """Every rank gathers; rank 0 writes."""
+        tree = self._ckpt_tree()
+        if self.main:
+            self.ckpt.save(self.state.step, tree, metrics)
 
     def _restore(self, path: str | None, resume: bool) -> int:
         """Load the module and EMA weights (BN statistics included) and,
         with `resume`, the step and the optimizer state, with the schedule's
         update count. Returns the epoch to continue from."""
-        mgr = self.ckpt if path is None else CheckpointManager(path)
+        mgr = (CheckpointManager(self.out_dir / "checkpoints")
+               if path is None and self.ckpt is None
+               else self.ckpt if path is None else CheckpointManager(path))
         restored = mgr.restore(map_location=self.device)
         s = self.state
-        s.module.load_state_dict(restored["module"])
-        if s.ema_module is not None:
+        par = s.parallel if s.parallel is not None and s.parallel.zero \
+            else None
+        if par is not None:
+            par.load_module_state_dict(restored["module"])
+        else:
+            s.module.load_state_dict(restored["module"])
+        if s.sharded_ema:
+            par.load_ema_state_dict(restored["ema_module"]
+                                    or restored["module"])
+        elif s.ema_module is not None:
             s.ema_module.load_state_dict(restored["ema_module"]
                                          or restored["module"])
         if resume:
             s.step = int(restored["step"])
-            s.optimizer.load_state_dict(restored["optimizer"])
+            if par is not None:
+                par.load_optimizer_state_dict(restored["optimizer"])
+            else:
+                s.optimizer.load_state_dict(restored["optimizer"])
             # the LR schedule's position, in updates, and the micro-steps
             # since the last one (`accumulate_steps`)
             every = getattr(s.optimizer, "accumulate_steps", 1)

@@ -492,18 +492,20 @@ def test_config_copy_equals_the_jax_packages(path):
 
 
 def test_all_yolox_configs_are_copied():
-    """The model YAMLs the port builds: the YOLOX family (with DropBlock),
-    the anchor families (YOLOv7, YOLOv5-s), the transformer backbones
-    (Swin, ViT with and without MoE, ResTv2, MCTformer) and e-YOLOX."""
+    """The model YAMLs the port builds: the YOLOX family (with DropBlock
+    and ZeRO), the anchor families (YOLOv7, YOLOv5-s), the transformer
+    backbones (Swin, ViT with and without MoE, the pipelined ViT, ResTv2,
+    MCTformer) and e-YOLOX."""
     names = {p.name for p in (CONFIG_DIR / "model").glob("*.yaml")}
     assert names == (
         {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x",
-                                     "s_dropblock")}
+                                     "s_dropblock", "s_zero")}
         | {f"{n}.yaml" for n in ("yolov7", "yolov7_tiny", "al_yolov7",
                                  "al_yolov7_tiny", "gc10_yolov7",
                                  "neu_yolov7", "neu_yolov7_tiny",
                                  "yolov5_s")}
         | {f"{n}.yaml" for n in ("swin_tiny", "swin_small", "swin_base",
                                  "swin_large", "vit_tiny", "vit_tiny_moe",
+                                 "vit_tiny_pp2",
                                  "restv2_tiny", "mctformer_small")}
         | {f"e-yolox_{s}.yaml" for s in ("tiny", "s", "m", "l", "x")})

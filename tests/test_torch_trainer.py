@@ -237,12 +237,15 @@ def test_checkpoint_retention_matches_orbax(tmp_path):
 
 
 def test_unported_config_keys_raise_naming_their_item():
-    """`parallel:` (ROADMAP item 12) still raises; multi-scale buckets and
-    the general-gather augmentation are ported and pass."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_ported({"parallel": {"model": 2}}, {})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_ported({"parallel": {"zero": True}}, {})
+    """Tensor, spatial and expert parallelism (ROADMAP item 12b) still
+    raise; ZeRO, GPipe, multi-scale buckets and the general-gather
+    augmentation are ported and pass."""
+    for key in ("model", "spatial", "expert"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            check_ported({"parallel": {key: 2}}, {})
+    check_ported({"parallel": {"zero": True}}, {})
+    check_ported({"parallel": {"zero": 3}}, {})
+    check_ported({"parallel": {"pipeline": 2}}, {})
     check_ported({}, {"transform": {"multiscale_sizes": [[32, 32]]}})
     check_ported({}, {"transform": {"shear": 2.0, "degrees": 5.0,
                                     "perspective": 1e-4}})
