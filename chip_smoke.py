@@ -190,20 +190,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      the operator's cost a call over the wrapper's; the NMS kernel's time
      on the `.pt2`'s input; each step's seconds and the phase's time.
  16. several ranks on the card (`pl_yolo_tpu_torch.parallel`): (a) two
-     ranks, spawned once as children of this script (`--parallel-rank`),
+     ranks, spawned once as children of this script (`--rank parallel`),
      over gloo by the backend rule (two ranks share the one card; what
      gloo takes through host memory is printed), train `yolox_s_zero.yaml`
      (ZeRO-1, `accumulate_steps: 2`, clip 35, the s2d augmentation of the
      global batch, 8 rows a rank) and `vit_tiny_pp2.yaml` (GPipe, 2
      stages, 2 microbatches of 8) at full width, 640^2, global batch 16:
      4 fp32 steps (TF32 off), each rank's losses and rank 0's gathered
-     state against one process here from the same init on the same batch
-     (PARALLEL_TOL, printed with its reason), then 2 steps in the YAMLs'
-     bf16 with finite losses, images/s as two ranks sharing one card (the
-     ranks start their steps once the one-process references here are
-     done, so nothing else runs on the card meanwhile); each
-     rank's bytes of ZeRO state against one process's; one eval batch of
-     each rank's rows through the gathered EMA and `postprocess`; each
+     state and EMA against one process here from the same init on the
+     same batch (PARALLEL_TOL, printed with its reason), then 2 steps in
+     the YAMLs' bf16 with finite losses, images/s as two ranks sharing one
+     card beside one process's (the ranks start their steps once the
+     one-process references here are done, so nothing else runs on the
+     card meanwhile); each rank's bytes of ZeRO state against one
+     process's; one eval batch of each rank's rows through the gathered
+     EMA, its predictions against one process's EMA's on those rows
+     (PARALLEL_PRED_TOL), and `postprocess`; each
      rank's own calls of the warp, top-k and NMS kernels recorded and held
      to the plain versions bit for bit; (b) one rank over NCCL: a ZeRO-3
      step; (c) `torchrun --nproc-per-node 2 -m pl_yolo_tpu_torch -c
@@ -213,6 +215,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      (PARALLEL_CLI_TOL of the change from the init), then the rank-0
      checkpoint validated by that `Trainer` to the mAP the two ranks
      printed; the phase's time.
+ 17. tensor, spatial and expert parallelism on the card: four ranks,
+     spawned once as children of this script (`--rank tpsp`), over gloo
+     on the one card, train (a) `yolox_s_tp2sp2.yaml` (model 2 x spatial
+     2, data 1: each rank its cout slices of the convs and its band of
+     rows of every map, with the halo exchanges) and (b) `vit_tiny_moe`
+     with `parallel: {expert: 2}` set in its dict (data 2 x expert 2, the
+     capacity as shipped) at 640^2 on a global batch of 8: 3 (a) and 2
+     (b) fp32 steps (TF32 off), each rank's losses and rank 0's gathered
+     state and EMA against one process here from the same init on the
+     same batch (phase 16's bounds), then 2 bf16 steps of (a), timed, as
+     four ranks sharing one card beside one process; one validation batch
+     of (a) through the gathered EMA on every rank, its predictions
+     against one process's EMA's (PARALLEL_PRED_TOL); the two phases
+     share their spawn, runs table (`RANK_RUNS`) and checks; each rank's
+     held parameter, moment and EMA bytes
+     against one process's; each rank's own calls of the warp, top-k and
+     NMS kernels recorded and held to the plain versions bit for bit; a
+     rank's staged collective counts; the phase's time.
 
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
@@ -224,7 +244,8 @@ path's; the four kernels' `launches` add the e-YOLOX path's to the
 YOLOX path's, which `launches_e_yolox_s` gives alone, and the deploy
 path's, which `launches_deploy` gives alone, with the kernel's times on
 the `.pt2`'s input as `ms_deploy`, `plain_ms_deploy`, `bound_ms_deploy`,
-and phase 16's, which `launches_parallel` gives alone),
+and phase 16's, which `launches_parallel` gives alone, and phase 17's,
+which `launches_tpsp` gives alone),
 and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
@@ -358,7 +379,6 @@ DEPLOY_ROUNDS = 3  # the serving routes timed in turns
 # and vit_tiny_pp2 (GPipe, 2 stages of 6 blocks, M = 2 microbatches of 8)
 # at 640^2 on a global batch of 16, in fp32 (TF32 off) against one process
 # here from the same init on the same batch, then in their bf16
-PARALLEL_CONFIGS = ("yolox_s_zero", "vit_tiny_pp2")
 PARALLEL_RANKS, PARALLEL_STEPS, PARALLEL_BF16_STEPS = 2, 4, 2
 # fp32, two ranks against one process: the same function, but the convs
 # and matmuls see 8 rows (or 8-row microbatches) where one process sees
@@ -378,6 +398,33 @@ PARALLEL_CLI_IMAGES, PARALLEL_CLI_SIZE = 32, 320  # torchrun: 2 steps of 16
 # change); a stale or untrained checkpoint is 1, averaged instead of
 # summed gradients 0.5
 PARALLEL_CLI_TOL = 0.1
+# phase 17: tensor, spatial and expert parallelism on the one card. Four
+# ranks, spawned once, train (a) yolox_s_tp2sp2 (model 2 x spatial 2, data
+# 1: each rank its cout slices and its band of rows of the 8 images) and
+# (b) vit_tiny_moe with `parallel: {expert: 2}` set in its dict (data 2 x
+# expert 2, its experts' capacity as shipped) at 640^2 on a global batch
+# of 8, in fp32 (TF32 off) against one process here from the same init on
+# the same batch, to phase 16's bounds; then (a) in its bf16, timed, and a
+# validation batch through the gathered EMA
+TPSP_RANKS, TPSP_BATCH, TPSP_STEPS, TPSP_BF16_STEPS, EP_STEPS = 4, 8, 3, 2, 2
+# the multi-rank runs of phases 16 and 17, {tag: (phase, ranks, global
+# batch, [(config, `parallel:` set in its dict or None, fp32 steps, bf16
+# steps)])}; each run's layout comes from its `parallel:`
+RANK_RUNS = {
+    "parallel": (16, PARALLEL_RANKS, BATCH, [
+        ("yolox_s_zero", None, PARALLEL_STEPS, PARALLEL_BF16_STEPS),
+        ("vit_tiny_pp2", None, PARALLEL_STEPS, PARALLEL_BF16_STEPS)]),
+    "tpsp": (17, TPSP_RANKS, TPSP_BATCH, [
+        ("yolox_s_tp2sp2", None, TPSP_STEPS, TPSP_BF16_STEPS),
+        ("vit_tiny_moe", {"expert": 2}, EP_STEPS, 0)]),
+}
+# the eval predictions of a YOLOX run's rows through the ranks' gathered
+# EMA against one process's EMA's, fp32: |got - want| over the largest
+# |want|, the boxes and the scores each. The weights agree to
+# PARALLEL_TOL of a few small steps' change, which moves the predictions
+# by far less; a gather that puts a slice or a shard in the wrong place
+# moves them by O(1)
+PARALLEL_PRED_TOL = 1e-3
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -3178,16 +3225,21 @@ def phase_deploy(torch, card: str, dev) -> dict:
 
 
 def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
-                 steps: int) -> dict:
+                 steps: int, batch: int = BATCH,
+                 parallel: dict | None = None) -> dict:
     """`steps` train steps of `name`.yaml at full width, 640^2, on rows
-    `rows` of a global batch of 16 uint8 images (bench.py's) through the
-    trainer's route (the s2d augmentation for a Focus stem, else NHWC),
-    from seed 0, with a card generator seeded 7: under `layout` through
-    the data-parallel engine (ZeRO as the YAML says), else in one process.
-    fp32 (TF32 off since phase 4) or the YAML's dtype. Returns the global
-    losses of each step, its seconds, the state as one process keeps it
-    (fp32), the engine's state bytes and, for yolox_s_zero, one eval batch
-    of the rows through the EMA weights and `postprocess`."""
+    `rows` of a global batch of `batch` uint8 images (bench.py's) through
+    the trainer's route (the s2d augmentation for a Focus stem, else
+    NHWC), from seed 0, with a card generator seeded 7: under `layout`
+    through the data-parallel engine (ZeRO, and the model, spatial and
+    expert slices, as the YAML, or `parallel` in its place, says), else in
+    one process. fp32 (TF32 off since phase 4) or the YAML's dtype.
+    Returns the global losses of each step, its seconds, the state and the
+    EMA as one process keeps them (fp32; the EMA as validation takes it,
+    gathered from the ranks' parts where they hold parts), the engine's
+    state bytes and, for the YOLOX configs, the eval predictions of the
+    rows through that EMA and their count of detections after
+    `postprocess`."""
     from pl_yolo_tpu_torch.data.augment import AugmentConfig, make_augment_fn
     from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
     from pl_yolo_tpu_torch.models.detector import build_model
@@ -3200,6 +3252,8 @@ def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
     cfg = load_config(MODEL_DIR / f"{name}.yaml")
     if fp32:
         cfg["dtype"] = None
+    if parallel is not None:
+        cfg["parallel"] = parallel
     par = cfg.get("parallel") or {}
     zero = 3 if par.get("zero") == 3 else int(bool(par.get("zero")))
     model = build_model(cfg, NUM_CLASSES, device=dev, seed=0,
@@ -3222,8 +3276,8 @@ def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
         augment_fn=make_augment_fn(AugmentConfig(max_labels=AUG_MAX_LABELS),
                                    out_s2d=s2d),
         apply_fn=s2d_apply if s2d else None)
-    images = bench_images(torch, dev, BATCH, seed=16)[rows]
-    labels = train_labels(torch, dev, BATCH)[rows]
+    images = bench_images(torch, dev, batch, seed=16)[rows]
+    labels = train_labels(torch, dev, batch)[rows]
     generator = torch.Generator(device=dev)
     generator.manual_seed(7)
     losses, seconds = [], []
@@ -3233,31 +3287,36 @@ def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append({k: float(v) for k, v in out.items()})
-    res = {"losses": losses, "seconds": seconds}
+    res = {"losses": losses, "seconds": seconds,
+           "rows": (rows.start, rows.stop)}
+    eval_module = state.eval_module   # gathered from the ranks' parts
     if fp32:
-        if engine is not None and zero:
+        if engine is not None and engine.sliced:
             res["state"] = engine.module_state_dict()
             res["bytes"] = engine.state_bytes()
         else:
             res["state"] = {k: v.detach().clone() for k, v in
                             state.module.state_dict().items()}
+        res["ema"] = {k: v.detach().clone() for k, v in
+                      eval_module.state_dict().items()}
         res["init"] = init
-    if name == "yolox_s_zero":
-        eval_module = state.eval_module   # gathered from the EMA's shards
+    if name.startswith("yolox_s_"):
         preds = make_eval_step(model.loss.eval_decode)(
             eval_module, images.float())
         det = postprocess(preds, conf_threshold=CONF_TRAINED,
                           iou_threshold=IOU, device=dev)
+        res["preds"] = preds.float().cpu()
         res["detections"] = int(det.valid.sum())
     return res
 
 
-def parallel_child(rank: int, port: int, out_dir: str,
-                   device: str = "cuda:0") -> None:
-    """One of phase 16's two ranks on the card (this script, run as
-    `chip_smoke.py --parallel-rank RANK PORT OUT_DIR` by phase 16): both
-    configs in turn, fp32 then bf16, its kernel calls recorded and held to
-    the plain versions; writes what it found to OUT_DIR/rank{RANK}.pt."""
+def rank_child(tag: str, rank: int, port: int, out_dir: str,
+               device: str = "cuda:0") -> None:
+    """One rank of phase 16 or 17 on the card (this script, run as
+    `chip_smoke.py --rank TAG RANK PORT OUT_DIR` by `run_ranks`): the
+    phase's runs in turn (`RANK_RUNS[TAG]`), each in fp32 then in its
+    bf16, its kernel calls recorded and held to the plain versions; writes
+    what it found to OUT_DIR/rank{RANK}.pt."""
     import torch
     sys.path.insert(0, str(ROOT))
     from pl_yolo_tpu_torch.parallel import collectives, distributed
@@ -3266,35 +3325,48 @@ def parallel_child(rank: int, port: int, out_dir: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
+    phase, n, batch, runs = RANK_RUNS[tag]
     dev = torch.device(device)
     distributed.initialize(device=dev, init_method=f"tcp://127.0.0.1:{port}",
-                           rank=rank, world_size=PARALLEL_RANKS,
-                           local_world_size=PARALLEL_RANKS)
+                           rank=rank, world_size=n, local_world_size=n)
     res = {"backend": torch.distributed.get_backend()}
+    layouts = {}
+    for name, parallel, _, _ in runs:
+        par = parallel if parallel is not None else (load_config(
+            MODEL_DIR / f"{name}.yaml").get("parallel") or {})
+        axes = {"pipe": int(par.get("pipeline", 1)),
+                **{a: int(par.get(a, 1))
+                   for a in ("model", "spatial", "expert")}}
+        layouts[name] = Layout(n // math.prod(axes.values()), **axes)
     # the timed steps wait for the parent's one-process references
     while not (Path(out_dir) / "refs_done").exists():
         time.sleep(0.05)
     reset_launch_counts()
+    collectives.STAGED.clear()
     with path_call_recorder(torch)() as records:
-        for name in PARALLEL_CONFIGS:
-            pipe = int((load_config(MODEL_DIR / f"{name}.yaml").get(
-                "parallel") or {}).get("pipeline", 1))
-            layout = Layout(PARALLEL_RANKS // pipe, pipe)
-            per = BATCH // layout.data
+        for name, parallel, steps, bf16_steps in runs:
+            layout = layouts[name]
+            per = batch // layout.data
             rows = slice(layout.data_index * per,
                          (layout.data_index + 1) * per)
             res[name] = parallel_run(torch, name, dev, layout, rows,
-                                     fp32=True, steps=PARALLEL_STEPS)
+                                     fp32=True, steps=steps, batch=batch,
+                                     parallel=parallel)
+            res[name]["index"] = layout.index
+            res[name]["widths"] = {a: getattr(layout, a) for a in (
+                "data", "model", "spatial", "pipe", "expert")}
             if rank:  # rank 0's gathered state is the one compared
-                res[name].pop("state", None)
-                res[name].pop("init", None)
-            res[name + " bf16"] = parallel_run(
-                torch, name, dev, layout, rows, fp32=False,
-                steps=PARALLEL_BF16_STEPS)
+                for k in ("state", "ema", "init"):
+                    res[name].pop(k, None)
+            if bf16_steps:
+                res[name + " bf16"] = parallel_run(
+                    torch, name, dev, layout, rows, fp32=False,
+                    steps=bf16_steps, batch=batch, parallel=parallel)
     res["launches"] = launch_counts()
     res["checks"] = path_calls_equal_plain(torch, records,
-                                           f"rank {rank} of phase 16")
+                                           f"rank {rank} of phase {phase}")
     res["staged"] = dict(collectives.STAGED)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
     distributed.shutdown()
 
@@ -3330,6 +3402,118 @@ def tree_change_err(got: dict, want: dict, init: dict) -> float:
     return math.sqrt(err / change)
 
 
+def run_ranks(torch, tag: str, dev, tmp: Path) -> tuple[list, dict, str]:
+    """The ranks of phase 16 or 17 on the one card, spawned once as
+    children of this script (`rank_child`), while the one-process
+    references of the same runs (fp32, and bf16 for the images/s) are
+    computed here; the ranks start their steps once those are done, so
+    nothing else runs on the card meanwhile. Returns (each rank's results,
+    the references, rank 0's output)."""
+    phase, n, batch, runs = RANK_RUNS[tag]
+    children = []
+    try:
+        port = free_port()
+        children = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", tag,
+             str(r), str(port), str(tmp)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+        refs = {}
+        for name, _, steps, bf16_steps in runs:
+            refs[name] = parallel_run(torch, name, dev, None,
+                                      slice(0, batch), fp32=True,
+                                      steps=steps, batch=batch)
+            if bf16_steps:
+                refs[name + " bf16"] = parallel_run(
+                    torch, name, dev, None, slice(0, batch), fp32=False,
+                    steps=bf16_steps, batch=batch)
+        torch.cuda.empty_cache()
+        (tmp / "refs_done").touch()
+        logs = [c.communicate(timeout=600)[0] for c in children]
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    for r, (c, out) in enumerate(zip(children, logs)):
+        if c.returncode != 0:
+            raise AssertionError(f"phase {phase} rank {r}: exit "
+                                 f"{c.returncode}:\n{out[-4000:]}")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(n)]
+    return ranks, refs, logs[0]
+
+
+def preds_err(got, want) -> float:
+    """|got - want| over the largest |want| of eval predictions [B, A,
+    5 + C], the boxes (the first 4 columns) and the scores each; the
+    larger."""
+    return max(float((got[..., c] - want[..., c]).abs().max())
+               / float(want[..., c].abs().max())
+               for c in (slice(0, 4), slice(4, None)))
+
+
+def hold_ranks(torch, tag: str, ranks: list, refs: dict) -> dict:
+    """Phase 16's or 17's ranks against one process: each rank's fp32
+    losses (PARALLEL_LOSS_TOL relative), rank 0's gathered state and EMA
+    (PARALLEL_TOL of the change), each rank's eval predictions of its rows
+    through the gathered EMA (PARALLEL_PRED_TOL), finite losses in fp32 and
+    bf16. Returns {run: {"state", "ema", "preds": the worst errors}}."""
+    phase, _, _, runs = RANK_RUNS[tag]
+    held = {}
+    for name, _, _, bf16_steps in runs:
+        ref = refs[name]
+        for r, got in enumerate(ranks):
+            for i, (g, w) in enumerate(zip(got[name]["losses"],
+                                           ref["losses"])):
+                for k in w:
+                    err = abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+                    if not err <= PARALLEL_LOSS_TOL:
+                        raise AssertionError(
+                            f"{name}: rank {r} step {i} {k} {g[k]} != "
+                            f"one process's {w[k]}")
+            for what in ("", " bf16") if bf16_steps else ("",):
+                for i, losses in enumerate(got[name + what]["losses"]):
+                    if not all(math.isfinite(v) for v in losses.values()):
+                        raise AssertionError(f"{name}{what}: rank {r} step "
+                                             f"{i}: {losses}")
+        err = {part: state_change_err(torch, ranks[0][name][part],
+                                      ref[part], ref["init"])
+               for part in ("state", "ema")}
+        if not max(err.values()) <= PARALLEL_TOL:
+            raise AssertionError(f"{name}: the {len(ranks)}-rank state and "
+                                 f"EMA are {err} of their change from one "
+                                 f"process's (phase {phase})")
+        if "preds" in ref:
+            err["preds"] = max(
+                preds_err(got[name]["preds"],
+                          ref["preds"][slice(*got[name]["rows"])])
+                for got in ranks)
+            if not err["preds"] <= PARALLEL_PRED_TOL:
+                raise AssertionError(
+                    f"{name}: the eval predictions through the gathered EMA "
+                    f"are {err['preds']:.3e} of their scale from one "
+                    f"process's (phase {phase})")
+        held[name] = err
+    return held
+
+
+def rank_kernels(ranks: list, tag: str) -> tuple[dict, dict]:
+    """The kernels' launches summed over the ranks, and the max |kernel -
+    plain| of their recorded calls; each rank must have launched each."""
+    launches = {k: 0 for k in GATE_KERNELS}
+    errs = {k: 0.0 for k in GATE_KERNELS}
+    for r, got in enumerate(ranks):
+        for k in GATE_KERNELS:
+            launches[k] += got["launches"][k]
+            errs[k] = max(errs[k], got["checks"][k][0])
+        log(f"[{tag}] rank {r} kernel calls == plain, bit for bit: "
+            + describe_path_checks(got["checks"]))
+        if not all(got["launches"][k] for k in GATE_KERNELS):
+            raise AssertionError(f"rank {r} launches {got['launches']}")
+    return launches, errs
+
+
 def phase_parallel(torch, card: str, dev) -> dict:
     """Phase 16 (see the module docstring), on the card `dev`. Returns the
     kernels' launches on the two ranks' paths of step 1 (the torchrun
@@ -3348,83 +3532,44 @@ def phase_parallel(torch, card: str, dev) -> dict:
     autotune = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
-    launches = {k: 0 for k in GATE_KERNELS}
-    errs = {k: 0.0 for k in GATE_KERNELS}
     try:
         # 1. two ranks on the one card, spawned once; the one-process
         # references meanwhile, here, before the ranks' steps start
         note("parallel: two ranks")
-        port = free_port()
-        children = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--parallel-rank", str(r), str(port), str(tmp)], cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(PARALLEL_RANKS)]
-        try:
-            refs = {name: parallel_run(torch, name, dev, None,
-                                       slice(0, BATCH), fp32=True,
-                                       steps=PARALLEL_STEPS)
-                    for name in PARALLEL_CONFIGS}
-            (tmp / "refs_done").touch()
-            logs = [c.communicate(timeout=600)[0] for c in children]
-        finally:
-            for c in children:
-                if c.poll() is None:
-                    c.kill()
-                    c.wait()
-        for r, (c, out) in enumerate(zip(children, logs)):
-            if c.returncode != 0:
-                raise AssertionError(f"phase 16 rank {r}: exit "
-                                     f"{c.returncode}:\n{out[-4000:]}")
-        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
-                 for r in range(PARALLEL_RANKS)]
-        for line in logs[0].splitlines():
+        ranks, refs, log0 = run_ranks(torch, "parallel", dev, tmp)
+        for line in log0.splitlines():
             if line.startswith("[parallel]"):
                 log(line)
         log(f"[parallel] backend by rule: {ranks[0]['backend']} (2 ranks, "
             f"{torch.cuda.device_count()} card); staged through host "
             f"memory: {ranks[0]['staged'] or 'nothing'}")
-        log(f"[parallel] tolerance: each parameter's change after "
-            f"{PARALLEL_STEPS} fp32 steps within {PARALLEL_TOL} of the "
-            f"one-process change, each loss within {PARALLEL_LOSS_TOL} "
-            f"(relative): the convs and matmuls see 8 rows where one "
-            f"process sees 16, cuDNN may sum in another order, BN's "
-            f"statistics are all-reduced partial sums")
-        for name in PARALLEL_CONFIGS:
-            ref = refs[name]
-            for r, got in enumerate(ranks):
-                for i, (g, w) in enumerate(zip(got[name]["losses"],
-                                               ref["losses"])):
-                    for k in w:
-                        err = abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
-                        if not err <= PARALLEL_LOSS_TOL:
-                            raise AssertionError(
-                                f"{name}: rank {r} step {i} {k} {g[k]} != "
-                                f"one process's {w[k]}")
-                for what in ("", " bf16"):
-                    for i, losses in enumerate(got[name + what]["losses"]):
-                        if not all(math.isfinite(v) for v in losses.values()):
-                            raise AssertionError(f"{name}{what}: rank {r} "
-                                                 f"step {i}: {losses}")
-            err = state_change_err(torch, ranks[0][name]["state"],
-                                   ref["state"], ref["init"])
-            if not err <= PARALLEL_TOL:
-                raise AssertionError(f"{name}: the 2-rank state is {err:.3e} "
-                                     f"of its change from one process's")
+        log(f"[parallel] tolerance: each parameter's and EMA tensor's "
+            f"change after {PARALLEL_STEPS} fp32 steps within "
+            f"{PARALLEL_TOL} of the one-process change, each loss within "
+            f"{PARALLEL_LOSS_TOL} (relative): the convs and matmuls see 8 "
+            f"rows where one process sees 16, cuDNN may sum in another "
+            f"order, BN's statistics are all-reduced partial sums; the eval "
+            f"predictions through the gathered EMA within "
+            f"{PARALLEL_PRED_TOL} of their scale")
+        held = hold_ranks(torch, "parallel", ranks, refs)
+        for name, _, steps, _ in RANK_RUNS["parallel"][3]:
+            ref, err = refs[name], held[name]
             bf16 = ranks[0][name + " bf16"]["seconds"][1:]
+            one_bf16 = refs[name + " bf16"]["seconds"][1:]
             step_s = ranks[0][name]["seconds"][1:]
-            log(f"[parallel] {name} fp32, {PARALLEL_STEPS} steps at "
+            log(f"[parallel] {name} fp32, {steps} steps at "
                 f"640^2, global batch {BATCH}: 2 ranks == 1 process "
                 f"(losses of the last step {ranks[0][name]['losses'][-1]['loss']:.6f} "
                 f"vs {ref['losses'][-1]['loss']:.6f}; worst parameter "
-                f"{err:.3e} of its change); bf16 losses finite; "
+                f"{err['state']:.3e}, EMA tensor {err['ema']:.3e} of its "
+                f"change); bf16 losses finite; "
                 f"{BATCH / (sum(bf16) / len(bf16)):.1f} images/s bf16, "
                 f"{BATCH / (sum(step_s) / len(step_s)):.1f} fp32, as 2 ranks "
                 f"sharing one card over gloo (no scaling figure; one "
-                f"process fp32: "
-                f"{BATCH / (sum(ref['seconds'][1:]) / (PARALLEL_STEPS - 1)):.1f})"
+                f"process bf16 {BATCH / (sum(one_bf16) / len(one_bf16)):.1f}"
+                f", fp32 "
+                f"{BATCH / (sum(ref['seconds'][1:]) / (steps - 1)):.1f})"
                 f" on {card}")
-        b = ranks[0]["yolox_s_zero"]["bytes"]
         for r, got in enumerate(ranks):
             b = got["yolox_s_zero"]["bytes"]
             log(f"[parallel] yolox_s_zero ZeRO-1, rank {r}: moments + "
@@ -3434,18 +3579,12 @@ def phase_parallel(torch, card: str, dev) -> dict:
                 f", params {b['params'] / 2**20:.1f} of "
                 f"{b['params_one_process'] / 2**20:.1f} (replicated at "
                 f"level 1); {got['yolox_s_zero']['detections']} detections "
-                f"on its eval rows")
+                f"on its eval rows through the gathered EMA, its "
+                f"predictions within {held['yolox_s_zero']['preds']:.3e} "
+                f"(worst rank) of one process's")
             if not b["opt_state"] < 0.55 * b["opt_state_one_process"]:
                 raise AssertionError(f"rank {r}: moments not sharded: {b}")
-            for k in GATE_KERNELS:
-                launches[k] += got["launches"][k]
-                errs[k] = max(errs[k], got["checks"][k][0])
-            log(f"[parallel] rank {r} kernel calls == plain, bit for bit: "
-                + describe_path_checks(got["checks"]))
-            if not (got["launches"]["topk_rows"] and
-                    got["launches"]["mosaic_warp"] and
-                    got["launches"]["nms_suppress"]):
-                raise AssertionError(f"rank {r} launches {got['launches']}")
+        launches, errs = rank_kernels(ranks, "parallel")
 
         # 2. one rank over NCCL: a ZeRO-3 step puts its all-gathers,
         # reduce-scatters, all-reduces and broadcasts on the card
@@ -3551,6 +3690,77 @@ def phase_parallel(torch, card: str, dev) -> dict:
         torch.backends.cudnn.benchmark = autotune
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[parallel] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def phase_tpsp(torch, card: str, dev) -> dict:
+    """Phase 17 (see the module docstring), on the card `dev`. Returns the
+    kernels' launches on the four ranks' paths and their max |kernel -
+    plain| on the ranks' own calls."""
+    t_phase = time.perf_counter()
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tpsp_"))
+    try:
+        note("tpsp: four ranks")
+        ranks, refs, _ = run_ranks(torch, "tpsp", dev, tmp)
+        log(f"[tpsp] backend by rule: {ranks[0]['backend']} ({TPSP_RANKS} "
+            f"ranks, {torch.cuda.device_count()} card); rank 0's calls "
+            f"staged through host memory: {ranks[0]['staged'] or 'nothing'}")
+        log(f"[tpsp] tolerance: phase 16's, each parameter's and EMA "
+            f"tensor's change after the fp32 steps within {PARALLEL_TOL} of "
+            f"the one-process change, each loss within {PARALLEL_LOSS_TOL} "
+            f"(relative), the eval predictions through the gathered EMA "
+            f"within {PARALLEL_PRED_TOL} of their scale: the convs see half "
+            f"the couts and half the rows, the MoE's matmuls half the "
+            f"tokens, BN's statistics are all-reduced partial sums")
+        held = hold_ranks(torch, "tpsp", ranks, refs)
+        for name, parallel, steps, _ in RANK_RUNS["tpsp"][3]:
+            ref, err = refs[name], held[name]
+            step_s = ranks[0][name]["seconds"][1:]
+            log(f"[tpsp] {name} {ranks[0][name]['widths']}"
+                f"{' (set in the dict)' if parallel else ''}"
+                f", {steps} fp32 steps at 640^2, global batch {TPSP_BATCH}: "
+                f"4 ranks == 1 process (last losses "
+                f"{ranks[0][name]['losses'][-1]['loss']:.6f} vs "
+                f"{ref['losses'][-1]['loss']:.6f}; worst parameter "
+                f"{err['state']:.3e}, EMA tensor {err['ema']:.3e} of its "
+                f"change); "
+                f"{TPSP_BATCH / (sum(step_s) / len(step_s)):.2f} images/s "
+                f"fp32 as 4 ranks sharing one card over gloo, one process "
+                f"{TPSP_BATCH / (sum(ref['seconds'][1:]) / (steps - 1)):.2f}"
+                f" (no scaling figure) on {card}")
+            for r, got in enumerate(ranks):
+                b = got[name]["bytes"]
+                log(f"[tpsp] {name} rank {r} {got[name]['index']}: holds "
+                    f"params {b['params'] / 2**20:.2f} MiB of one process's "
+                    f"{b['params_one_process'] / 2**20:.2f}, moments "
+                    f"{b['opt_state'] / 2**20:.2f} of "
+                    f"{b['opt_state_one_process'] / 2**20:.2f}, EMA "
+                    f"{b['ema'] / 2**20:.2f} of "
+                    f"{b['ema_one_process'] / 2**20:.2f}")
+                if not b["params"] < 0.6 * b["params_one_process"] and \
+                        name == "yolox_s_tp2sp2":
+                    raise AssertionError(f"rank {r}: convs not sliced: {b}")
+        name = "yolox_s_tp2sp2"
+        bf16 = ranks[0][name + " bf16"]["seconds"][1:]
+        one_bf16 = refs[name + " bf16"]["seconds"][1:]
+        log(f"[tpsp] {name} bf16: losses finite, "
+            f"{TPSP_BATCH / (sum(bf16) / len(bf16)):.2f} images/s as 4 ranks "
+            f"sharing one card over gloo, one process "
+            f"{TPSP_BATCH / (sum(one_bf16) / len(one_bf16)):.2f}"
+            f" (no scaling figure); a validation batch of the 8 images "
+            f"through the gathered EMA on every rank: predictions within "
+            f"{held[name]['preds']:.3e} of their scale (worst rank) of one "
+            f"process's EMA's, {ranks[0][name]['detections']} detections "
+            f"(one process {refs[name]['detections']}); peak memory a rank "
+            f"{max(g['peak_gib'] for g in ranks):.1f} GiB on {card}")
+        launches, errs = rank_kernels(ranks, "tpsp")
+        log(f"[tpsp] the kernels' launches on the 4 ranks: {launches}")
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[tpsp] phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "max_abs_err": errs}
 
 
@@ -4622,6 +4832,14 @@ def main() -> int:
     topk_err = max(topk_err, parallel["max_abs_err"]["topk_rows"])
     warp_err = max(warp_err, parallel["max_abs_err"]["mosaic_warp"])
 
+    # 17. tensor, spatial and expert parallelism on the card
+    note("tpsp")
+    tpsp = phase_tpsp(torch, card, dev)
+    tl = tpsp["launches"]
+    max_err = max(max_err, tpsp["max_abs_err"]["nms_suppress"])
+    topk_err = max(topk_err, tpsp["max_abs_err"]["topk_rows"])
+    warp_err = max(warp_err, tpsp["max_abs_err"]["mosaic_warp"])
+
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -4629,10 +4847,12 @@ def main() -> int:
         "source": "pl_yolo_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/nms_pallas.py:29",
         "launches": (nms_launches + e_yolox["nms_suppress"]
-                     + deploy["launches"] + pl["nms_suppress"]),
+                     + deploy["launches"] + pl["nms_suppress"]
+                     + tl["nms_suppress"]),
         "launches_e_yolox_s": e_yolox["nms_suppress"],
         "launches_deploy": deploy["launches"],
-        "launches_parallel": pl["nms_suppress"], "max_abs_err": max_err,
+        "launches_parallel": pl["nms_suppress"],
+        "launches_tpsp": tl["nms_suppress"], "max_abs_err": max_err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "ms_deploy": deploy["record"]["ms"],
@@ -4642,9 +4862,11 @@ def main() -> int:
         "name": "topk_rows", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
-        "launches": topk_launches + e_yolox["topk_rows"] + pl["topk_rows"],
+        "launches": (topk_launches + e_yolox["topk_rows"] + pl["topk_rows"]
+                     + tl["topk_rows"]),
         "launches_e_yolox_s": e_yolox["topk_rows"],
-        "launches_parallel": pl["topk_rows"], "max_abs_err": topk_err,
+        "launches_parallel": pl["topk_rows"],
+        "launches_tpsp": tl["topk_rows"], "max_abs_err": topk_err,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": topk_recs["-cost M=50"]["bound_ms"],
         "bound_by": topk_recs["-cost M=50"]["bound_by"],
@@ -4653,9 +4875,10 @@ def main() -> int:
         "source": "pl_yolo_tpu_torch/csrc/mosaic_warp.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/mosaic_pallas.py:71",
         "launches": (warp_launches + e_yolox["mosaic_warp"]
-                     + pl["mosaic_warp"]),
+                     + pl["mosaic_warp"] + tl["mosaic_warp"]),
         "launches_e_yolox_s": e_yolox["mosaic_warp"],
-        "launches_parallel": pl["mosaic_warp"], "max_abs_err": warp_err,
+        "launches_parallel": pl["mosaic_warp"],
+        "launches_tpsp": tl["mosaic_warp"], "max_abs_err": warp_err,
         "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
         "bound_ms": warp_mean("bound_ms"),
         "bound_by": warp_recs["mosaic (K=4)"]["bound_by"],
@@ -4692,7 +4915,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--parallel-rank"]:
-        parallel_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+    if sys.argv[1:2] == ["--rank"]:
+        rank_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                   *sys.argv[5:7])
         sys.exit(0)
     sys.exit(main())

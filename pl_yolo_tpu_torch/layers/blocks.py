@@ -31,7 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import data_layout, global_batch_norm
+from ..parallel import spatial, tensor
+from ..parallel.mesh import (global_batch_norm, model_layout, norm_layout,
+                             spatial_layout)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum = 1 - flax momentum (0.97)
@@ -76,10 +78,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     Eval mode and the `state_dict` keys are the base class's. With
     `update_stats` false (the recompute of a checkpointed layer), train
     mode normalises by the batch and leaves the running statistics alone.
-    Inside a data-parallel train step (`parallel.mesh.use_layout`, a data
-    width above 1) the batch is the global one: the statistics come from
-    every data rank's rows (`parallel.mesh.global_batch_norm`), as GSPMD
-    makes the JAX package's BatchNorm global."""
+    Inside a train step whose norm group (`parallel.mesh.use_layout`, data
+    x spatial) holds more than one rank the batch is the global one: the
+    statistics come from every data rank's rows and every spatial rank's
+    band (`parallel.mesh.global_batch_norm`), as GSPMD makes the JAX
+    package's BatchNorm global."""
 
     def __init__(self, num_features: int, eps: float, momentum: float):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -93,7 +96,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        layout = data_layout()
+        layout = norm_layout()
         if layout is not None:
             y, mean, var = global_batch_norm(x, self.weight, self.bias,
                                              self.eps, layout)
@@ -200,12 +203,40 @@ def _norms(norm: str | None, num_features: int
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype | None
           ) -> torch.Tensor:
-    """`conv` applied in `dtype` (None: the input's dtype); params stay fp32."""
-    if dtype is None:
-        return conv(x)
-    b = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    """`conv` applied in `dtype` (None: the input's dtype); params stay fp32.
+    Inside a train step's layout a band of rows (`parallel: {spatial}`)
+    first takes the halo rows its window reaches (`parallel.spatial`), and
+    a conv whose cout is sharded (`parallel: {model}`) runs as
+    `parallel.tensor.conv2d`."""
+    sp = spatial_layout() if conv.kernel_size[0] > 1 else None
+    sharded = tensor.is_sharded(conv)
+    if sp is None and not sharded:
+        if dtype is None:
+            return conv(x)
+        b = None if conv.bias is None else conv.bias.to(dtype)
+        return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, conv.stride,
+                        conv.padding, conv.dilation, conv.groups)
+    w, b = conv.weight, conv.bias
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+        b = None if b is None else b.to(dtype)
+    padding = conv.padding
+    if sp is not None:
+        x = spatial.conv_input(x, conv.kernel_size[0], conv.stride[0],
+                               conv.padding[0], sp)
+        padding = (0, conv.padding[1])
+    if sharded:
+        return tensor.conv2d(x, w, b, conv.stride, padding, conv.dilation,
+                             conv.groups, model_layout())
+    return F.conv2d(x, w, b, conv.stride, padding, conv.dilation,
+                    conv.groups)
+
+
+def apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A bare `nn.Conv2d` (a head's prediction conv) in its parameters'
+    dtype, through `_conv`'s halo and cout-sharded routes inside a train
+    step's layout."""
+    return _conv(conv, x, None)
 
 
 class ConvBlock(nn.Module):
@@ -424,7 +455,11 @@ def maybe_checkpoint(layer: nn.Module, x: torch.Tensor, remat: bool
 
 
 def max_pool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """Stride-1 max pool with SAME padding (-inf pad), NCHW."""
+    """Stride-1 max pool with SAME padding (-inf pad), NCHW; on a band of
+    rows (`parallel: {spatial}`) with its halo rows."""
+    sp = spatial_layout()
+    if sp is not None:
+        return spatial.max_pool_same(x, ksize, sp)
     return F.max_pool2d(x, ksize, stride=1, padding=ksize // 2)
 
 

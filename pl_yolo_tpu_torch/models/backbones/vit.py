@@ -30,7 +30,8 @@ from torch import nn
 
 from ...layers.blocks import LayerNorm, SameConv2d, get_activation
 from ...ops.resize import resize_bicubic
-from ...parallel.mesh import pipe_layout
+from ...parallel import collectives
+from ...parallel.mesh import data_layout, expert_layout, pipe_layout
 from ...parallel.pipeline import check_depth, pipeline_apply
 
 _gelu = get_activation("gelu")  # jax.nn.gelu: the tanh approximation
@@ -58,11 +59,26 @@ def moe_ffn(p: dict, y: torch.Tensor, capacity_factor: float = 1.25
     buffers, run through their expert's FFN, gathered back and scaled by
     their gate probability. The JAX package's dense dispatch builds [n, E,
     C] one-hot tensors, 3.3 GB a layer at B=16, 640²; this keeps [E, C, d].
+
+    Inside a train step with a data width D > 1 (and no GPipe, whose stage
+    sees a microbatch's tokens, as JAX's `shard_map` stage does) it is the
+    function of the global batch, as the JAX package's jitted step is under
+    GSPMD: n counts every data rank's tokens, and a token's position is its
+    position on its rank plus its expert's tokens on the data ranks before
+    (one all-gather of the [E] counts). With an expert width X > 1 the
+    expert tensors hold this rank's E/X experts (`parallel.tensor`): the
+    router, the gate and the positions are computed on every expert rank
+    alike, outside the expert region, so that the router's gradient is
+    whole; the tokens and the gates enter it through `copy_to_group`, each
+    rank runs its experts' buffers, and the combine leaves through
+    `reduce_from_group` over the expert group.
     """
     n_b, t, d = y.shape
     n_exp = p["moe_router"].shape[-1]
     n = n_b * t
-    cap = -(-int(n * capacity_factor) // n_exp)
+    data = None if pipe_layout() is not None else data_layout()
+    n_all = n if data is None else n * data.data
+    cap = -(-int(n_all * capacity_factor) // n_exp)
     yt = y.reshape(n, d)
     logits = yt.to(torch.float32) @ p["moe_router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                  # [n, E]
@@ -73,18 +89,41 @@ def moe_ffn(p: dict, y: torch.Tensor, capacity_factor: float = 1.25
     onehot = (expert[None, :]
               == torch.arange(n_exp, device=y.device)[:, None]).long()
     pos = (torch.cumsum(onehot, dim=1) * onehot).sum(0) - 1  # [n]
-    # token i's row: its expert's slot, or, past the capacity, a zero row
-    # of its own after the E·C slots, so that no two tokens share a row
-    # (the scatter and the gather then need no atomics either way)
-    slot = torch.where(pos < cap, expert * cap + pos,
-                       n_exp * cap + torch.arange(n, device=y.device))
-    buf = yt.new_zeros(n_exp * cap + n, d).index_copy(0, slot, yt)
-    expert_in = buf[:n_exp * cap].reshape(n_exp, cap, d)
+    kept = pos
+    if data is not None:
+        counts = collectives.all_gather_dim0(onehot.sum(1)[None],
+                                             data.data_group)  # [D, E]
+        kept = pos + counts[:data.data_index].sum(0)[expert]
+    ex = expert_layout()
+    per, first = p["moe_w1"].shape[0], 0
+    if ex is not None:
+        first = ex.expert_index * per
+        mine = (kept < cap) & (expert >= first) & (expert < first + per)
+        yt = collectives.copy_to_group(yt, ex.expert_group)
+        gate = collectives.copy_to_group(gate, ex.expert_group)
+    elif per != n_exp:
+        raise RuntimeError(
+            f"the MoE FFN holds {per} of {n_exp} experts: it runs only "
+            "inside a train step's layout with their expert width "
+            "(parallel.mesh.use_layout); gather the module first")
+    else:
+        mine = kept < cap
+    # token i's row: its expert's slot (its position on this rank, below
+    # C where its global position is), or, past the capacity or on another
+    # expert rank, a zero row of its own after the slots, so that no two
+    # tokens share a row (the scatter and the gather then need no atomics)
+    slot = torch.where(mine, (expert - first) * cap + pos,
+                       per * cap + torch.arange(n, device=y.device))
+    buf = yt.new_zeros(per * cap + n, d).index_copy(0, slot, yt)
+    expert_in = buf[:per * cap].reshape(per, cap, d)
     h = _gelu(torch.bmm(expert_in, p["moe_w1"]) + p["moe_b1"][:, None, :])
     out = torch.bmm(h, p["moe_w2"]) + p["moe_b2"][:, None, :]
-    picked = torch.cat([out.reshape(n_exp * cap, d),
+    picked = torch.cat([out.reshape(per * cap, d),
                         out.new_zeros(n, d)])[slot]
-    return (picked * gate[:, None].to(out.dtype)).reshape(n_b, t, d)
+    res = picked * gate[:, None].to(out.dtype)
+    if ex is not None:
+        res = collectives.reduce_from_group(res, ex.expert_group)
+    return res.reshape(n_b, t, d)
 
 
 def vit_block(p: dict, x: torch.Tensor, num_heads: int,
@@ -234,7 +273,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.patch_size, self.out_strides = patch_size, tuple(out_strides)
-        self.moe_capacity = moe_capacity
+        self.moe_experts, self.moe_capacity = moe_experts, moe_capacity
         self.patch_embed = SameConv2d(3, embed_dim, patch_size, patch_size)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, ref_grid, ref_grid, embed_dim))

@@ -15,7 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ...layers.blocks import ConvBlock, DWConvBlock
+from ...layers.blocks import ConvBlock, DWConvBlock, apply_conv
 
 
 def _prior_bias(prior_prob: float = 1e-2) -> float:
@@ -25,7 +25,9 @@ def _prior_bias(prior_prob: float = 1e-2) -> float:
 class DecoupledHead(nn.Module):
     """`feat_channels` are the widths of the input maps (default:
     `in_channels`). The 1x1 pred convs run in fp32 whatever the compute
-    dtype, as the JAX package's `Conv1x1` promotes to its fp32 kernel."""
+    dtype, as the JAX package's `Conv1x1` promotes to its fp32 kernel.
+    Under `parallel: {model}` a pred conv whose cout is sharded adds its
+    bias after the channels are gathered (`layers.blocks.apply_conv`)."""
 
     def __init__(self, num_classes: int = 80, n_anchors: int = 1,
                  in_channels: Sequence[int] = (256, 512, 1024),
@@ -66,8 +68,8 @@ class DecoupledHead(nn.Module):
             reg_feat = m("reg_conv{k}_1")(m("reg_conv{k}_0")(x))
             reg_feat = reg_feat.to(torch.promote_types(reg_feat.dtype,
                                                        torch.float32))
-            out = torch.cat([m("reg_pred{k}")(reg_feat),
-                             m("obj_pred{k}")(reg_feat),
-                             m("cls_pred{k}")(cls_feat)], dim=1)
+            out = torch.cat([apply_conv(m("reg_pred{k}"), reg_feat),
+                             apply_conv(m("obj_pred{k}"), reg_feat),
+                             apply_conv(m("cls_pred{k}"), cls_feat)], dim=1)
             outputs.append(out.permute(0, 2, 3, 1))
         return outputs

@@ -14,6 +14,22 @@ statistics, GPipe's broadcast of the last stage) back-propagates to every
 rank's own rows. `send` / `recv` are GPipe's differentiable hand-over of an
 activation to the next stage; the gradient goes back the other way, matched
 by its tag (the microbatch).
+
+The tensor, spatial and expert paths add four differentiable ops, Megatron's
+pattern written out:
+
+  * `copy_to_group`: the identity; its backward all-reduces the gradient
+    (each rank's part of a replicated input's gradient is partial);
+  * `reduce_from_group`: an all-reduce; its backward is the identity (every
+    rank computes the same loss downstream);
+  * `gather_along`: the ranks' slices concatenated along a dim; its backward
+    slices out this rank's part of the gradient, with no sum (every rank
+    computes the same loss downstream: a sum would give the group's width
+    times the gradient);
+  * `gather_summed`: the ranks' t stacked along a new dim 0; its backward
+    sums each rank's gradient of every copy and keeps this rank's (a
+    reduce-scatter: the halo rows that other ranks read send their
+    gradients back to their owner).
 """
 
 from __future__ import annotations
@@ -54,13 +70,16 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_gather_dim0(t: torch.Tensor, group) -> torch.Tensor:
-    """The ranks' t [k, ...] concatenated along dim 0, in rank order."""
+    """The ranks' t [k, ...] concatenated along dim 0, in rank order (on
+    gloo gathered into the rows of one host buffer, copied to t's device
+    at once)."""
+    n, k = group_size(group), t.shape[0]
     if _stage("all_gather", t, group) or _gloo(group):
-        parts = [torch.empty_like(t, device="cpu")
-                 for _ in range(group_size(group))]
-        dist.all_gather(parts, t.cpu().contiguous(), group=group)
-        return torch.cat(parts).to(t.device)
-    out = t.new_empty((t.shape[0] * group_size(group),) + t.shape[1:])
+        out = torch.empty((k * n,) + t.shape[1:], dtype=t.dtype)
+        dist.all_gather([out[i * k:(i + 1) * k] for i in range(n)],
+                        t.cpu().contiguous(), group=group)
+        return out.to(t.device)
+    out = t.new_empty((k * n,) + t.shape[1:])
     dist.all_gather_into_tensor(out, t.contiguous(), group=group)
     return out
 
@@ -231,3 +250,77 @@ def recv(like: torch.Tensor, src: int, group, tag: int) -> torch.Tensor:
     """Differentiable receive from global rank src of a tensor shaped like
     `like`; the backward pass sends its gradient back to src."""
     return _Recv.apply(like, src, group, tag)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """t itself; its gradient is the sum of the group's gradients."""
+    return _CopyToGroup.apply(t, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the group's t; its gradient passes through unchanged."""
+    return _ReduceFromGroup.apply(t, group)
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.size = dim, t.shape[dim]
+        ctx.rank = group_rank(group)
+        every = all_gather_dim0(t[None], group)           # [n, ...]
+        return every.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, \
+            None
+
+
+def gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's slices of a tensor concatenated along `dim`, in rank
+    order; the gradient of this rank's slice is its part of the gradient,
+    not summed over the group."""
+    return _GatherAlong.apply(t, dim, group)
+
+
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_gather_dim0(t[None], group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim0(grad, ctx.group)[0], None
+
+
+def gather_summed(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's t stacked along a new dim 0, in rank order; the gradient
+    of this rank's t is the sum over the group of the gradients of its
+    copy."""
+    return _GatherSummed.apply(t, group)

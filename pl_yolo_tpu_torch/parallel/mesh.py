@@ -1,30 +1,42 @@
-"""The world as data x pipe process groups, the ZeRO rules, and the ambient
-layout of a train step (port of the data / pipe / ZeRO part of
-`pl_yolo_tpu/parallel/mesh.py`).
+"""The world in the five axes of `make_mesh`, the ZeRO rules, and the
+ambient layout of a train step (port of the data / model / spatial / pipe /
+expert / ZeRO part of `pl_yolo_tpu/parallel/mesh.py`).
 
-`Layout(data, pipe)` lays the world out rank-major, as `make_mesh` lays out
-its (data, pipe) devices: rank = d * pipe + p. The ranks with the same pipe
-index p form a data group (they hold different rows of the batch and
-all-reduce their gradients); the ranks with the same data index d form a
-pipe group (they hold the same rows and run the stages of one GPipe).
+`Layout(data, pipe, model=, spatial=, expert=)` lays the world out
+rank-major, as `make_mesh` lays out its (data, model, spatial, pipe,
+expert) devices: rank = (((d·M + m)·S + s)·P + p)·E + e. Each axis has a
+group: the ranks that differ in that index alone (`data_group`: they hold
+different rows of the batch; `model_group`: different cout slices of the
+sharded convs; `spatial_group`: different bands of rows of every map;
+`pipe_group`: the stages of one GPipe; `expert_group`: different experts of
+each MoE layer). The norm group holds the ranks that differ in data or
+spatial index: BatchNorm's (B, H, W) reductions and the gradients run over
+it.
 
 The step activates its layout around the augmentation, the forward and the
 loss (`use_layout`), the same idiom as `use_pipeline_mesh` and
 `set_compute_dtype`: modules deep in the model read it instead of taking it
 as an argument.
 
-  * `BatchNorm2d` in train mode normalises over the data group's rows
-    (`global_batch_norm`): one differentiable all-reduce of the per-channel
-    sum, sum of squares and count; flax's E[x²] - E[x]² makes that exact.
+  * `BatchNorm2d` in train mode normalises over the norm group's rows and
+    bands (`global_batch_norm`): one differentiable all-reduce of the
+    per-channel sum, sum of squares and count; flax's E[x²] - E[x]² makes
+    that exact.
   * The losses divide their partial sums by global counts (`data_sum`,
-    `batch_mean`, `global_batch`): each rank's loss is its share of the
-    loss of the global batch, so the gradients are summed, not averaged.
-  * The augmentation draws for the global batch and warps its own rows
-    (`data_rows`); so do DropBlock and DropPath.
+    `batch_mean`, `global_batch`, over the data group: the loss is
+    replicated over the model, spatial and expert ranks): each rank's loss
+    is its share of the loss of the global batch, so the gradients are
+    summed, not averaged.
+  * The augmentation draws for the global batch and warps its data rank's
+    rows (`data_rows`); so do DropBlock and DropPath.
+  * The convs shard their cout over the model group (`parallel.tensor`),
+    the maps their rows over the spatial group (`parallel.spatial`), the
+    MoE FFN its experts over the expert group
+    (`models.backbones.vit.moe_ffn`).
   * The ViT and MCTformer towers run as a GPipe over the pipe group.
 
-Outside the context, or with a data and pipe width of 1, every helper here
-is the identity and every path is the single-process one, bit for bit.
+Outside the context, or with every width 1, every helper here is the
+identity and every path is the single-process one, bit for bit.
 
 ZeRO (`parallel: {zero: true|3}`, `zero_spec`): level 1 shards the
 optimizer moments, the accumulation buffer and the EMA copy over the data
@@ -36,41 +48,74 @@ statistics stay replicated.
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 import torch.distributed as dist
 
 from . import collectives
 
+AXES = ("data", "model", "spatial", "pipe", "expert")
+
 
 class Layout:
-    """The world as `data` x `pipe` process groups. Every rank must build
-    it, in the same order, since it creates the groups (`new_group` is a
-    collective call). `data_group` / `pipe_group` are this rank's; the
-    `*_ranks` lists hold their global ranks."""
+    """The world as `data` x `model` x `spatial` x `pipe` x `expert`
+    process groups (`pipe` is the second positional argument, as before the
+    other axes came). Every rank must build it, in the same order, since it
+    creates the groups (`new_group` is a collective call). `<axis>_group`
+    and `norm_group` are this rank's; the `*_ranks` lists hold their global
+    ranks, in the order of the axis's index; `<axis>_index` is this rank's
+    index along each axis."""
 
-    def __init__(self, data: int, pipe: int = 1):
+    def __init__(self, data: int, pipe: int = 1, *, model: int = 1,
+                 spatial: int = 1, expert: int = 1):
         world = dist.get_world_size() if dist.is_initialized() else 1
         rank = dist.get_rank() if dist.is_initialized() else 0
-        if data * pipe != world:
-            raise ValueError(f"layout {data} x {pipe} (data x pipe) != "
-                             f"{world} processes")
-        self.data, self.pipe, self.rank, self.world = data, pipe, rank, world
-        self.data_index, self.pipe_index = divmod(rank, pipe)
+        sizes = {"data": data, "model": model, "spatial": spatial,
+                 "pipe": pipe, "expert": expert}
+        if data * model * spatial * pipe * expert != world:
+            raise ValueError(
+                f"layout {data}x{model}x{spatial}x{pipe}x{expert} (data x "
+                f"model x spatial x pipe x expert) != {world} processes")
+        self.data, self.model, self.spatial = data, model, spatial
+        self.pipe, self.expert = pipe, expert
+        self.rank, self.world = rank, world
+        index, rest = {}, rank
+        for axis in reversed(AXES):
+            rest, index[axis] = divmod(rest, sizes[axis])
+        self.index = index
+        for axis in AXES:
+            setattr(self, f"{axis}_index", index[axis])
         # one process: the default group (None), of rank 0 alone
-        self.data_group = self.pipe_group = None
-        self.data_ranks = self.pipe_ranks = [rank]
-        if world > 1:
-            for p in range(pipe):
-                ranks = [d * pipe + p for d in range(data)]
+        for axis in AXES + ("norm",):
+            setattr(self, f"{axis}_group", None)
+            setattr(self, f"{axis}_ranks", [rank])
+        if world == 1:
+            return
+
+        def rank_of(ix: dict) -> int:
+            r = 0
+            for axis in AXES:
+                r = r * sizes[axis] + ix[axis]
+            return r
+
+        def build(name: str, varying: tuple) -> None:
+            """One group for each index of the other axes: the ranks that
+            differ in the `varying` axes alone."""
+            fixed = [a for a in AXES if a not in varying]
+            for rest_ix in itertools.product(*(range(sizes[a])
+                                               for a in fixed)):
+                base = dict(zip(fixed, rest_ix))
+                ranks = [rank_of({**base, **dict(zip(varying, v))})
+                         for v in itertools.product(*(range(sizes[a])
+                                                      for a in varying))]
                 group = dist.new_group(ranks)
-                if p == self.pipe_index:
-                    self.data_group, self.data_ranks = group, ranks
-            for d in range(data):
-                ranks = [d * pipe + p for p in range(pipe)]
-                group = dist.new_group(ranks)
-                if d == self.data_index:
-                    self.pipe_group, self.pipe_ranks = group, ranks
+                if all(index[a] == base[a] for a in fixed):
+                    setattr(self, f"{name}_group", group)
+                    setattr(self, f"{name}_ranks", ranks)
+        for axis in AXES:
+            build(axis, (axis,))
+        build("norm", ("data", "spatial"))
 
     @property
     def world_group(self):
@@ -127,10 +172,40 @@ def data_layout() -> Layout | None:
     return layout if layout is not None and layout.data > 1 else None
 
 
+def _wide(axis: str) -> Layout | None:
+    layout = _LAYOUT[0]
+    return (layout if layout is not None and getattr(layout, axis) > 1
+            else None)
+
+
 def pipe_layout() -> Layout | None:
     """The ambient layout if its pipe width is above 1, else None."""
+    return _wide("pipe")
+
+
+def model_layout() -> Layout | None:
+    """The ambient layout if its model (tensor-parallel) width is above 1,
+    else None."""
+    return _wide("model")
+
+
+def spatial_layout() -> Layout | None:
+    """The ambient layout if its spatial width is above 1, else None."""
+    return _wide("spatial")
+
+
+def expert_layout() -> Layout | None:
+    """The ambient layout if its expert width is above 1, else None."""
+    return _wide("expert")
+
+
+def norm_layout() -> Layout | None:
+    """The ambient layout if its norm group (data x spatial) holds more
+    than one rank, else None."""
     layout = _LAYOUT[0]
-    return layout if layout is not None and layout.pipe > 1 else None
+    if layout is None:
+        return None
+    return layout if layout.data * layout.spatial > 1 else None
 
 
 def data_sum(t: torch.Tensor) -> torch.Tensor:
@@ -182,10 +257,11 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
 def global_batch_norm(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, eps: float, layout: Layout
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Train-mode BatchNorm of NCHW x over the data group's rows: the
-    per-channel sum, sum of squares and count all-reduced in one
-    differentiable call, mean = S/N, biased var = max(Q/N - mean², 0) (flax's
-    fast variance), y = (x - mean)·rsqrt(var + eps)·weight + bias in fp32
+    """Train-mode BatchNorm of NCHW x over the norm group's rows and bands
+    (data x spatial): the per-channel sum, sum of squares and count
+    all-reduced in one differentiable call, mean = S/N, biased var =
+    max(Q/N - mean², 0) (flax's fast variance), y = (x -
+    mean)·rsqrt(var + eps)·weight + bias in fp32
     (float64 for a float64 x), cast back to x's dtype. Returns (y, mean,
     var), the statistics detached."""
     c = x.shape[1]
@@ -194,7 +270,7 @@ def global_batch_norm(x: torch.Tensor, weight: torch.Tensor,
     count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
     stats = collectives.all_reduce_sum(
         torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]),
-        layout.data_group)
+        layout.norm_group)
     n = stats[2 * c]
     mean = stats[:c] / n
     var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)

@@ -29,6 +29,22 @@ Every update is elementwise (SGD, AdamW; weight decay on conv / linear
 weights only), so any partition gives the single-process numbers. The
 global norm of `clip_grad_norm` is an all-reduce of the shards' squared
 sums plus the replicated tensors' own.
+
+Under a model or expert width above 1 (`parallel.tensor`) the engine cuts
+the module's sharded convs and experts to this rank's slices when it is
+built; the optimizer, its moments and the EMA copy then hold slices. A
+ZeRO shard and a model or expert slice are one kind of part here (a
+`tensor.Shard`: a dim, a group, this rank's index, the group's width), so
+that the EMA, the gathers, the byte counts and the state_dict moves take
+one path; they differ only in what the module holds: the whole tensor
+under ZeRO, its slice under tensor and expert parallelism. Each gradient
+is summed over the ranks that hold the same tensor and saw other rows or
+bands: the norm group (data x spatial), for the replicated tensors (the
+model and expert ranks already hold their whole gradient) and the slices
+alike. The clip's global norm counts each
+slice's squares once. `eval_module()`, the checkpoint's state_dicts and
+their loads gather to, or cut from, the one-process format. ZeRO with
+these axes is not ported (ROADMAP queue A, item 12c).
 """
 
 from __future__ import annotations
@@ -40,23 +56,31 @@ import math
 import torch
 from torch import nn
 
-from . import collectives
+from . import collectives, tensor
 from .mesh import Layout, zero_spec
 
 
 @dataclasses.dataclass
 class _Entry:
-    """One tensor of the module and its part on this rank: dim 0's
-    [start, start + length) where it is sharded (`dim` 0), else all of it."""
+    """One tensor of the module (`name`) and the part of it this rank
+    holds: `shard` says how the one-process tensor splits (None: whole,
+    replicated). Under ZeRO the module keeps the whole tensor (at level 3
+    gathered before each forward) and the part is a slice of it; under
+    tensor or expert parallelism (`sliced`) the module's tensor is the
+    part."""
+    name: str
     tensor: torch.Tensor          # the module's parameter or buffer
-    dim: int | None
-    start: int = 0
-    length: int = 0
-    shard: torch.Tensor | None = None   # a shard with storage of its own
+    shard: tensor.Shard | None = None
+    sliced: bool = False
+    own: torch.Tensor | None = None     # a part with storage of its own
 
 
 def _release(t: torch.Tensor) -> None:
     t.data = t.data.new_empty(0)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class DataParallel:
@@ -70,10 +94,13 @@ class DataParallel:
 
     def __init__(self, module: nn.Module, layout: Layout, zero: int = 0,
                  use_ema: bool = True):
-        if zero and layout.pipe > 1:
+        wide = {a: getattr(layout, a) for a in ("model", "spatial", "expert")
+                if getattr(layout, a) > 1}
+        if zero and (layout.pipe > 1 or wide):
             raise NotImplementedError(
-                "parallel: {zero} with pipeline > 1 is not ported yet "
-                "(ROADMAP queue A, item 12b)")
+                f"ZeRO (level {zero}) with pipeline={layout.pipe} and "
+                f"{wide or 'no other axis'} is not ported yet (ROADMAP queue "
+                "A, item 12c)")
         self.module, self.layout, self.zero = module, layout, int(zero)
         self.group, self.size = layout.data_group, layout.data
         self.rank = layout.data_index
@@ -82,66 +109,80 @@ class DataParallel:
             collectives.broadcast_many_(
                 [t.data for t in [*module.parameters(), *module.buffers()]],
                 0, layout.world_group)
-        self.params = [self._entry(p, "params" if self.zero >= 3
+        # tensor / expert parallelism: the module keeps this rank's slices
+        self.specs = tensor.shard_specs(module, layout)
+        tensor.shard_module(module, self.specs)
+        self.params = [self._entry(n, p, "params" if self.zero >= 3
                                    else "opt_state")
-                       for p in module.parameters() if p.requires_grad]
+                       for n, p in module.named_parameters()
+                       if p.requires_grad]
         self._by_id = {id(e.tensor): e for e in self.params}
         self._held: dict[int, torch.Tensor] = {}
         self.optimizer = None
-        self.ema_entries = self.eval_template = None
+        self.ema_entries = self.template = None
         self._eval_ready = False
-        if self.zero and use_ema:
-            named = [*module.named_parameters(), *module.named_buffers()]
-            self.ema_names = [n for n, _ in named]
-            self.ema_entries = [self._entry(t, "ema") for _, t in named]
-            for e in self.ema_entries:
-                e.shard = self._part(e).detach().clone()
-            self.eval_template = copy.deepcopy(module).eval()
-            self.eval_template.requires_grad_(False)
+        if self.sliced:
+            # a whole module (released) to gather the EMA into for
+            # validation, and the EMA copy as this rank's parts
+            self.template = copy.deepcopy(module).eval()
+            self.template.requires_grad_(False)
             for t in self._template_tensors():
                 _release(t)
+            if use_ema:
+                self.ema_entries = [
+                    self._entry(n, t, "ema") for n, t in
+                    [*module.named_parameters(), *module.named_buffers()]]
+                for e in self.ema_entries:
+                    e.own = self._part(e).detach().clone()
         if self.zero >= 3:
             for e in self.params:
-                if e.dim is not None:
-                    e.shard = self._part(e).detach().clone()
+                if e.shard is not None:
+                    e.own = self._part(e).detach().clone()
                     _release(e.tensor)
 
-    def _entry(self, t: torch.Tensor, kind: str) -> _Entry:
+    def _entry(self, name: str, t: torch.Tensor, kind: str) -> _Entry:
+        if name in self.specs:
+            return _Entry(name, t, self.specs[name], sliced=True)
         dim = (zero_spec(kind, tuple(t.shape), self.size, self.zero)
                if t.is_floating_point() else None)
         if dim is None:
-            return _Entry(t, None)
-        n = t.shape[0] // self.size
-        return _Entry(t, dim, self.rank * n, n)
+            return _Entry(name, t)
+        return _Entry(name, t, tensor.Shard(dim, self.group, self.rank,
+                                            self.size))
 
     @staticmethod
     def _part(e: _Entry) -> torch.Tensor:
         """This rank's part of the module's tensor (a view)."""
         t = e.tensor.data
-        return t if e.dim is None else t.narrow(0, e.start, e.length)
+        return t if e.shard is None or e.sliced else e.shard.narrow(t)
 
     def _template_tensors(self) -> list[torch.Tensor]:
-        named = dict([*self.eval_template.named_parameters(),
-                      *self.eval_template.named_buffers()])
-        return [named[n] for n in self.ema_names]
+        return [*self.template.parameters(), *self.template.buffers()]
 
     def _device(self) -> torch.device:
         return self.params[0].tensor.device
+
+    @property
+    def sliced(self) -> bool:
+        """True when this rank holds parts of the parameters' state (ZeRO,
+        or tensor or expert parallelism)."""
+        return bool(self.zero or self.specs)
 
     # ------------------------------------------------------------ optimizer
 
     def optimizer_views(self) -> dict:
         """`build_optimizer`'s keywords: the tensor the optimizer holds for
-        each parameter (its shard under ZeRO: a view into the parameter at
-        level 1, the master shard at level 3) and the gradient's global
-        norm for the clip. Plain data parallelism needs neither."""
-        if not self.zero:
+        each parameter (its part under ZeRO: a view into the parameter at
+        level 1, the master shard at level 3; the parameter itself, a
+        slice, under tensor or expert parallelism) and the gradient's
+        global norm for the clip. Plain data parallelism needs neither."""
+        if not self.sliced:
             return {}
 
         def view(p):
             e = self._by_id[id(p)]
-            held = p if e.dim is None else (
-                e.shard if e.shard is not None else self._part(e))
+            held = p if e.shard is None or e.sliced else (
+                e.own if e.own is not None else self._part(e))
             self._held[id(p)] = held
             return held
         return {"param_view": view, "global_norm": self.grad_norm}
@@ -153,46 +194,48 @@ class DataParallel:
         """The tensor the optimizer holds for entry e."""
         return self._held.get(id(e.tensor), e.tensor)
 
-    def grad_norm(self) -> torch.Tensor:
-        """The global norm of the gradient the optimizer holds: the shards'
-        squared sums all-reduced over the data group, plus the replicated
-        tensors' own."""
-        sq = torch.zeros((), dtype=torch.float64, device=self._device())
-        whole = torch.zeros_like(sq)
+    def _part_sums(self, value) -> torch.Tensor:
+        """The sum over the parameters of `value(gradient)` (a float64
+        scalar), each part counted once: the parts' sums all-reduced over
+        their group (ZeRO's data group, or the model or expert group)."""
+        whole = torch.zeros((), dtype=torch.float64, device=self._device())
+        parts: dict = {}   # id(group) -> [group, the parts' sum]
+        if self.zero:
+            parts[id(self.group)] = [self.group, torch.zeros_like(whole)]
         for e in self.params:
             g = self.held(e).grad
-            if g is not None:
-                g2 = g.to(torch.promote_types(g.dtype, torch.float32)).pow(2)
-                if e.dim is None:
-                    whole = whole + g2.sum().double()
-                else:
-                    sq = sq + g2.sum().double()
-        if self.zero:
-            collectives.all_reduce_(sq, self.group)
-        return torch.sqrt(sq + whole)
+            if g is None:
+                continue
+            if e.shard is None:
+                whole = whole + value(g).double()
+            else:
+                acc = parts.setdefault(id(e.shard.group), [
+                    e.shard.group, torch.zeros_like(whole)])
+                acc[1] = acc[1] + value(g).double()
+        for group, v in parts.values():
+            whole = whole + collectives.all_reduce_(v, group)
+        return whole
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the gradient the optimizer holds: the parts'
+        squared sums all-reduced over their groups, plus the replicated
+        tensors' own."""
+        return torch.sqrt(self._part_sums(
+            lambda g: g.to(torch.promote_types(g.dtype, torch.float32))
+            .pow(2).sum()))
 
     def grad_health(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(the gradient's global norm, its count of non-finite elements)
-        from the shards the optimizer holds (a collective call)."""
-        bad = torch.zeros((), dtype=torch.float64, device=self._device())
-        whole = torch.zeros_like(bad)
-        for e in self.params:
-            g = self.held(e).grad
-            if g is not None:
-                n = (~torch.isfinite(g)).sum().double()
-                if e.dim is None:
-                    whole = whole + n
-                else:
-                    bad = bad + n
-        collectives.all_reduce_(bad, self.group)
-        return self.grad_norm().float(), (bad + whole).float()
+        from the parts the optimizer holds (a collective call)."""
+        bad = self._part_sums(lambda g: (~torch.isfinite(g)).sum())
+        return self.grad_norm().float(), bad.float()
 
     # ------------------------------------------------------------- the step
 
     def before_forward(self) -> None:
         """Level 3: all-gather each sharded parameter into the module. The
         EMA's gathered eval module is released."""
-        if self.eval_template is not None and self._eval_ready:
+        if self._eval_ready:
             for t in self._template_tensors():
                 _release(t)
             self._eval_ready = False
@@ -203,17 +246,19 @@ class DataParallel:
         collective call), until `release_params` or the next backward."""
         if self.zero < 3:
             return
-        sharded = [e for e in self.params if e.dim is not None]
+        sharded = [e for e in self.params if e.shard is not None]
         for e, full in zip(sharded, collectives.all_gather_many(
-                [e.shard for e in sharded], self.group)):
+                [e.own for e in sharded], self.group)):
             e.tensor.data = full
 
     def reduce_grads(self) -> None:
-        """Sum the gradients over the data group (over the world, divided
-        by the pipe width, under GPipe), each dtype in one flat call: under
-        ZeRO each sharded gradient is reduce-scattered into the shard the
-        optimizer holds (at level 3 the whole parameter is released), the
-        others are all-reduced."""
+        """Sum the gradients over the norm group (data x spatial; over the
+        world, divided by the pipe width, under GPipe), each dtype in one
+        flat call: under ZeRO each sharded gradient is reduce-scattered
+        into the shard the optimizer holds (at level 3 the whole parameter
+        is released), the others are all-reduced. A model or expert slice's
+        gradient is whole for its slice on its rank, as a replicated
+        tensor's is."""
         layout = self.layout
         for e in self.params:
             if e.tensor.grad is None:
@@ -223,8 +268,8 @@ class DataParallel:
             collectives.all_reduce_many_(grads, layout.world_group)
             torch._foreach_div_(grads, float(layout.pipe))
             return
-        # (no entry is sharded at level 0)
-        scattered = [e for e in self.params if e.dim is not None]
+        scattered = [e for e in self.params
+                     if e.shard is not None and not e.sliced]
         if scattered:
             shards = collectives.reduce_scatter_many(
                 [e.tensor.grad for e in scattered], self.group)
@@ -234,8 +279,8 @@ class DataParallel:
                 if self.zero >= 3:
                     _release(e.tensor)
         collectives.all_reduce_many_(
-            [e.tensor.grad for e in self.params if e.dim is None],
-            self.group)
+            [e.tensor.grad for e in self.params
+             if e.shard is None or e.sliced], layout.norm_group)
 
     def after_update(self) -> None:
         """Level 1: all-gather the updated shards into the module's
@@ -243,7 +288,7 @@ class DataParallel:
         accumulating micro-step)."""
         if self.zero != 1 or getattr(self.optimizer, "mini_step", 0):
             return
-        sharded = [e for e in self.params if e.dim is not None]
+        sharded = [e for e in self.params if e.shard is not None]
         fulls = collectives.all_gather_many(
             [self._part(e).clone() for e in sharded], self.group)
         for e, full in zip(sharded, fulls):
@@ -251,18 +296,18 @@ class DataParallel:
 
     @torch.no_grad()
     def ema_update(self, updates: int, decay: float = 0.9999) -> None:
-        """The EMA step of `train.ema.ema_update` on this rank's shards."""
+        """The EMA step of `train.ema.ema_update` on this rank's parts."""
         d = decay * (1.0 - math.exp(-updates / 2000.0))
         ema_f, new_f = [], []
         for e in self.ema_entries:
             p = self._by_id.get(id(e.tensor))
-            new = p.shard if p is not None and p.shard is not None \
+            new = p.own if p is not None and p.own is not None \
                 else self._part(e)
-            if e.shard.is_floating_point():
-                ema_f.append(e.shard)
-                new_f.append(new.to(e.shard.dtype))
+            if e.own.is_floating_point():
+                ema_f.append(e.own)
+                new_f.append(new.to(e.own.dtype))
             else:
-                e.shard.copy_(new)
+                e.own.copy_(new)
         torch._foreach_mul_(ema_f, d)
         torch._foreach_add_(ema_f, new_f, alpha=1.0 - d)
 
@@ -277,65 +322,85 @@ class DataParallel:
         collectives.all_reduce_(flat, self.group)
         return {k: flat[i].to(losses[k].dtype) for i, k in enumerate(names)}
 
-    # ------------------------------------------------------ gathers, shards
+    # ------------------------------------------------------ gathers, parts
 
-    def _gather(self, entries: list, shards: list) -> list:
-        """Each entry's whole tensor from its shards (one flat all-gather
-        for the sharded ones; the replicated ones as they are)."""
-        out = list(shards)
-        idx = [i for i, e in enumerate(entries) if e.dim is not None]
-        fulls = collectives.all_gather_many([shards[i] for i in idx],
-                                            self.group)
-        for i, full in zip(idx, fulls):
-            out[i] = full
+    @staticmethod
+    def _whole(entries: list, parts: list) -> list:
+        """Each entry's one-process tensor from this rank's part of it: the
+        parts of one group and dim in one flat all-gather (a collective
+        call); the replicated ones as they are."""
+        out = list(parts)
+        buckets: dict = {}
+        for i, e in enumerate(entries):
+            if e.shard is not None:
+                buckets.setdefault((id(e.shard.group), e.shard.dim),
+                                   []).append(i)
+        for idx in buckets.values():
+            s = entries[idx[0]].shard
+            fulls = collectives.all_gather_many(
+                [parts[i].detach().movedim(s.dim, 0) for i in idx], s.group)
+            for i, full in zip(idx, fulls):
+                out[i] = full.movedim(0, s.dim).contiguous()
         return out
 
     def eval_module(self) -> nn.Module:
-        """The EMA copy gathered into a whole module, in eval mode (a
-        collective call: every rank of the data group makes it). Released
-        again at the next step."""
+        """The EMA copy (or, without one, the module) gathered into a whole
+        module, in eval mode (a collective call: every rank makes it).
+        Released again at the next step."""
         if not self._eval_ready:
-            fulls = self._gather(self.ema_entries,
-                                 [e.shard for e in self.ema_entries])
-            for t, full in zip(self._template_tensors(), fulls):
-                t.data = full
+            if self.ema_entries is not None:
+                whole = dict(zip(
+                    [e.name for e in self.ema_entries],
+                    self._whole(self.ema_entries,
+                                [e.own for e in self.ema_entries])))
+            else:
+                whole = {**dict(self.module.named_buffers()),
+                         **self.module_state_dict()}
+            for name, t in [*self.template.named_parameters(),
+                            *self.template.named_buffers()]:
+                t.data = whole[name].detach()
             self._eval_ready = True
-        return self.eval_template
+        return self.template
 
     def release_params(self) -> None:
         if self.zero >= 3:
             for e in self.params:
-                if e.dim is not None:
+                if e.shard is not None:
                     _release(e.tensor)
 
     def module_state_dict(self) -> dict:
-        """The module's single-process state_dict (collective at level 3)."""
+        """The module's single-process state_dict (collective at level 3,
+        and where the model or expert width slices it)."""
         self.gather_params()
         sd = {k: v.detach().clone()
               for k, v in self.module.state_dict().items()}
         self.release_params()
+        sliced = [e for e in self.params if e.sliced]
+        for e, whole in zip(sliced, self._whole(
+                sliced, [sd[e.name] for e in sliced])):
+            sd[e.name] = whole
         return sd
 
     def load_module_state_dict(self, sd: dict) -> None:
         self.gather_params()
-        self.module.load_state_dict(sd)
+        self.module.load_state_dict(tensor.shard_state_dict(sd, self.specs))
         if self.zero >= 3:
             for e in self.params:
-                if e.dim is not None:
-                    e.shard.copy_(e.tensor.data.narrow(0, e.start, e.length))
+                if e.shard is not None:
+                    e.own.copy_(self._part(e))
         self.release_params()
 
     def ema_state_dict(self) -> dict:
+        """The EMA copy's single-process state_dict (a collective call)."""
         return {k: v.detach().clone()
                 for k, v in self.eval_module().state_dict().items()}
 
     def load_ema_state_dict(self, sd: dict) -> None:
-        for name, e in zip(self.ema_names, self.ema_entries):
-            if name not in sd:
+        for e in self.ema_entries:
+            if e.name not in sd:
                 continue  # a non-persistent scratch buffer
-            full = sd[name].to(e.shard.device, e.shard.dtype)
-            e.shard.copy_(full if e.dim is None
-                          else full.narrow(0, e.start, e.length))
+            full = sd[e.name].to(e.own.device, e.own.dtype)
+            e.own.copy_(full if e.shard is None else e.shard.narrow(full))
         self._eval_ready = False
 
     def _opt_entries(self) -> list[_Entry]:
@@ -345,65 +410,63 @@ class DataParallel:
                 for p in g["params"]]
 
     def optimizer_state_dict(self) -> dict:
-        """The optimizer's single-process state_dict: each sharded moment
-        (and accumulation buffer) all-gathered (a collective call)."""
+        """The optimizer's single-process state_dict: each part of a moment
+        (and of the accumulation buffer) gathered (a collective call)."""
         sd = self.optimizer.state_dict()
-        if not self.zero:
+        if not self.sliced:
             return sd
         state = {i: dict(st) for i, st in sd["state"].items()}
-        keys, entries, shards = [], [], []
+        keys, entries, parts = [], [], []
         for i, e in enumerate(self._opt_entries()):
             for k, v in state.get(i, {}).items():
                 if isinstance(v, torch.Tensor) and v.ndim >= 1:
                     keys.append((i, k))
                     entries.append(e)
-                    shards.append(v)
-        for (i, k), full in zip(keys, self._gather(entries, shards)):
+                    parts.append(v)
+        for (i, k), full in zip(keys, self._whole(entries, parts)):
             state[i][k] = full
         return {"state": state, "param_groups": sd["param_groups"]}
 
     def load_optimizer_state_dict(self, sd: dict) -> None:
         """Load a single-process optimizer state_dict: each rank keeps its
-        shard of each sharded tensor."""
-        if self.zero:
+        part of each tensor it holds a part of."""
+        if self.sliced:
             state = {}
             for i, e in enumerate(self._opt_entries()):
                 st = sd["state"].get(i)
                 if st is None:
                     continue
-                state[i] = {k: (v.narrow(0, e.start, e.length).clone()
-                                if isinstance(v, torch.Tensor) and v.ndim >= 1
-                                and e.dim is not None else v)
-                            for k, v in st.items()}
+
+                def part(v, e=e):
+                    if (e.shard is None or not isinstance(v, torch.Tensor)
+                            or v.ndim < 1):
+                        return v
+                    return e.shard.narrow(v).clone()
+                state[i] = {k: part(v) for k, v in st.items()}
             sd = {"state": state, "param_groups": sd["param_groups"]}
         self.optimizer.load_state_dict(sd)
 
     def state_bytes(self) -> dict:
         """This rank's bytes of optimizer state, EMA copy and parameters
-        (the shards where they are sharded), and one process's."""
-        def nbytes(ts):
-            return sum(t.numel() * t.element_size() for t in ts)
-        opt = [v for st in self.optimizer.state.values() for v in st.values()
-               if isinstance(v, torch.Tensor) and v.ndim >= 1]
-        full_opt = 0
+        (the parts where it holds parts), and one process's: a part counts
+        its group's width times for one process."""
+        out = dict.fromkeys(("opt_state", "ema", "params"), 0)
+        out.update(dict.fromkeys(("opt_state_one_process", "ema_one_process",
+                                  "params_one_process"), 0))
+
+        def add(kind: str, t: torch.Tensor, width: int) -> None:
+            out[kind] += _nbytes(t)
+            out[kind + "_one_process"] += _nbytes(t) * width
         for e in self.params:
+            width = 1 if e.shard is None else e.shard.width
+            # the module's parameter: whole under ZeRO-1, a part at level 3
+            # (its master shard) and under tensor or expert parallelism
+            held = e.own if e.own is not None else e.tensor
+            add("params", held, width if e.own is not None or e.sliced
+                else 1)
             for t in self.optimizer.state.get(self.held(e), {}).values():
                 if isinstance(t, torch.Tensor) and t.ndim >= 1:
-                    full_opt += (t.numel() * t.element_size()
-                                 * (self.size if e.dim is not None else 1))
-        ema = ([e.shard for e in self.ema_entries]
-               if self.ema_entries is not None else [])
-        full_ema = sum(
-            e.shard.numel() * e.shard.element_size()
-            * (self.size if e.dim is not None else 1)
-            for e in (self.ema_entries or []))
-        params = [(e.shard if e.shard is not None else e.tensor)
-                  for e in self.params]
-        full_params = sum(
-            e.tensor.element_size() * (
-                e.shard.numel() * self.size if e.shard is not None
-                else e.tensor.numel()) for e in self.params)
-        return {"opt_state": nbytes(opt), "ema": nbytes(ema),
-                "params": nbytes(params), "opt_state_one_process": full_opt,
-                "ema_one_process": full_ema,
-                "params_one_process": full_params}
+                    add("opt_state", t, width)
+        for e in self.ema_entries or []:
+            add("ema", e.own, 1 if e.shard is None else e.shard.width)
+        return out

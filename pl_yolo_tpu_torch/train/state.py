@@ -13,10 +13,13 @@ its inputs there.
 
 Several processes train one model through a `parallel.zero.DataParallel`
 engine in the state (`TrainState.parallel`): the step then runs under its
-layout (global BatchNorm, losses and augmentation, GPipe towers; see
-`parallel.mesh`), reduces the gradients over the data group, and under
-ZeRO updates its shards of the parameters and of the EMA only. Without an
-engine the step is the single-process one.
+layout (global BatchNorm, losses and augmentation, cout-sharded convs,
+bands of rows with their halos, sharded experts, GPipe towers; see
+`parallel.mesh`), reduces the gradients over the norm group, and under
+ZeRO updates its shards of the parameters and of the EMA only. Under a
+spatial width above 1 each rank keeps its band of the augmented images,
+and the head maps are gathered along H before the loss. Without an engine
+the step is the single-process one.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch
 from torch import nn
 
 from ..layers.drops import dropout_generator
-from ..parallel.mesh import use_layout
+from ..parallel import spatial
+from ..parallel.mesh import spatial_layout, use_layout
 from .ema import ema_update
 
 
@@ -41,14 +45,15 @@ class TrainState:
     step: int                         # updates taken
     ema_module: nn.Module | None      # EMA of params and BN stats, eval mode
     # the data-parallel engine of a multi-process run (parallel.zero); under
-    # ZeRO it keeps the EMA as shards, and ema_module is None
+    # ZeRO, tensor or expert parallelism it keeps the EMA as this rank's
+    # parts, and ema_module is None
     parallel: object | None = None
 
     @classmethod
     def create(cls, module: nn.Module, optimizer: torch.optim.Optimizer,
                use_ema: bool = True, parallel=None) -> "TrainState":
         ema = None
-        if use_ema and (parallel is None or not parallel.zero):
+        if use_ema and (parallel is None or not parallel.sliced):
             ema = copy.deepcopy(module).eval().requires_grad_(False)
         if parallel is not None:
             parallel.attach(optimizer)
@@ -57,15 +62,17 @@ class TrainState:
 
     @property
     def sharded_ema(self) -> bool:
-        """True when the EMA copy lives as ZeRO shards in the engine."""
+        """True when the EMA copy lives as parts in the engine (ZeRO,
+        tensor or expert parallelism)."""
         return (self.parallel is not None
                 and self.parallel.ema_entries is not None)
 
     @property
     def eval_module(self) -> nn.Module:
         """The module for validation: the EMA copy if there is one (under
-        ZeRO gathered from its shards: a collective call)."""
-        if self.sharded_ema:
+        ZeRO, or tensor or expert parallelism, gathered from its slices: a
+        collective call)."""
+        if self.parallel is not None and self.parallel.sliced:
             return self.parallel.eval_module()
         return self.module if self.ema_module is None else self.ema_module
 
@@ -147,6 +154,9 @@ def make_train_step(
                 images, labels = augment_fn(generator, images, labels)
         if not images.is_floating_point():
             images = images.to(torch.float32)
+        sp = spatial_layout()
+        if sp is not None:
+            images = spatial.band(images, sp)
 
         module.train()
         if par is not None:
@@ -154,6 +164,8 @@ def make_train_step(
         with dropout_generator(module, generator):
             outputs = (module(images) if apply_fn is None
                        else apply_fn(module, images))
+        if sp is not None:
+            outputs = [spatial.gather_rows(o, 1, sp) for o in outputs]
         if loss_takes_l1 and use_l1 is not None:
             losses = loss_fn(outputs, labels, use_l1=use_l1)
         else:
@@ -164,7 +176,7 @@ def make_train_step(
         if par is not None:
             par.reduce_grads()
             losses = par.sum_losses(losses)
-        if sanitize and par is not None and par.zero:
+        if sanitize and par is not None and par.sliced:
             losses["grad_norm"], losses["nonfinite_grads"] = \
                 par.grad_health()
         elif sanitize:

@@ -18,10 +18,13 @@ the processes train one model, as the JAX package's devices do: data
 parallelism by default, with global BatchNorm, losses and augmentation
 (`parallel.mesh`); ZeRO-1 / ZeRO-3 with the model yaml's `parallel: {zero:
 true|3}`; a GPipe over the ViT / MCTformer towers with `parallel:
-{pipeline: S}`. The data yaml's batch size is a host's, split over the
-host's data ranks; each rank loads its own rows and validates its share of
-the images, whose detections rank 0 evaluates. Rank 0 alone logs and writes
-checkpoints, in the single-process format (ZeRO state gathered first).
+{pipeline: S}`; cout-sharded convs (`parallel: {model: M}`), bands of rows
+with halo exchanges (`{spatial: S}`) and sharded MoE experts (`{expert:
+X}`), the ranks laid out as the JAX package's mesh lays out its devices.
+The data yaml's batch size is a host's, split over the host's data ranks;
+each rank loads its data rank's rows and validates its share of the
+images, whose detections rank 0 evaluates. Rank 0 alone logs and writes
+checkpoints, in the single-process format (sharded state gathered first).
 Config keys whose machinery is not ported raise `NotImplementedError`
 naming the ROADMAP item that brings it.
 """
@@ -57,18 +60,46 @@ from .optim import build_optimizer
 from .state import TrainState, make_eval_step, make_train_step
 
 
+# the families whose convs and pools the tensor and spatial paths cover
+TP_SP_FAMILIES = {"backbone": "cspdarknet", "neck": "csppafpn",
+                  "head": "decoupled_head"}
+
+
 def check_ported(model_cfg: dict, data_cfg: dict) -> None:
-    """Raise on config keys whose machinery the port does not have yet."""
+    """Raise on config keys whose machinery the port does not have yet:
+    combinations of the parallel axes that no shipped YAML uses, which the
+    JAX package takes through GSPMD (ROADMAP queue A, item 12c)."""
     par = model_cfg.get("parallel", {}) or {}
-    wide = {k: int(par[k]) for k in ("model", "spatial", "expert")
-            if int(par.get(k, 1)) > 1}
-    if wide:
-        raise NotImplementedError(
-            f"parallel: {par} needs tensor, spatial or expert parallelism, "
-            "which is not ported yet (ROADMAP queue A, item 12b); the port "
-            "takes data parallelism, `zero: true|3` and `pipeline: N`")
     if par.get("zero") not in (None, False, True, 0, 1, 3):
         raise ValueError(f"parallel.zero={par['zero']!r}: take true or 3")
+    wide = {k: int(par[k]) for k in ("model", "spatial", "expert")
+            if int(par.get(k, 1)) > 1}
+
+    def refuse(what: str):
+        raise NotImplementedError(
+            f"parallel: {par}: {what} is not ported yet (ROADMAP queue A, "
+            "item 12c)")
+    if wide and par.get("zero"):
+        refuse(f"`zero` with {wide}")
+    if wide and int(par.get("pipeline", 1)) > 1:
+        refuse(f"`pipeline` with {wide}")
+    tp_sp = {k: v for k, v in wide.items() if k in ("model", "spatial")}
+    if tp_sp:
+        for part, name in TP_SP_FAMILIES.items():
+            got = (model_cfg.get(part) or {}).get("name")
+            if got != name:
+                refuse(f"{tp_sp} on {part} {got!r} (tensor and spatial "
+                       "parallelism cover CSPDarknet, CSPPAFPN and "
+                       "DecoupledHead)")
+        if model_cfg.get("remat"):
+            refuse(f"`remat: true` with {tp_sp}")
+    if "model" in wide and any((model_cfg.get(part) or {}).get("depthwise")
+                               for part in TP_SP_FAMILIES):
+        refuse("grouped convs (`depthwise: true`) under parallel.model")
+    if "spatial" in wide:
+        if ((model_cfg.get("backbone") or {}).get("drop_block") or {}).get(
+                "rate", 0.0):
+            refuse("DropBlock on bands of rows (parallel.spatial)")
     t_cfg = data_cfg.get("transform", {}) or {}
     check_config(AugmentConfig.from_dict(t_cfg))  # use_pallas
 
@@ -174,19 +205,44 @@ class Trainer:
 
     def _check_parallel(self) -> Layout | None:
         """The `parallel:` checks of the JAX trainer (its messages), and the
-        layout of the world: data x pipe, None in one process."""
+        layout of the world: data x model x spatial x pipe x expert, None in
+        one process."""
         par = self.model_cfg.get("parallel", {}) or {}
         self.pipe_par = int(par.get("pipeline", 1))
+        self.model_par = int(par.get("model", 1))
+        self.spatial_par = int(par.get("spatial", 1))
+        self.expert_par = int(par.get("expert", 1))
         self.zero_par = 3 if par.get("zero") == 3 else int(bool(
             par.get("zero")))
-        if self.world % self.pipe_par:
+        non_data = (self.model_par * self.spatial_par * self.pipe_par
+                    * self.expert_par)
+        if self.world % non_data:
             raise ValueError(
-                f"parallel.model=1 x parallel.spatial=1 x parallel.pipeline="
-                f"{self.pipe_par} x parallel.expert=1 must divide the device "
+                f"parallel.model={self.model_par} x parallel.spatial="
+                f"{self.spatial_par} x parallel.pipeline={self.pipe_par} x "
+                f"parallel.expert={self.expert_par} must divide the device "
                 f"count {self.world}")
+        if self.expert_par > 1:
+            moe = int(getattr(self.model.module.backbone, "moe_experts", 0)
+                      or 0)
+            if moe % self.expert_par:
+                raise ValueError(
+                    f"parallel.expert={self.expert_par} needs a MoE backbone "
+                    f"with moe_experts divisible by it (got {moe}) — set "
+                    "backbone.moe_experts (vision_transformer) or drop the "
+                    "key")
+        if self.spatial_par > 1:
+            t_cfg = self.data_cfg.get("transform", {}) or {}
+            for h, _ in [tuple(self.datamodule.train_size)] + [
+                    tuple(s) for s in t_cfg.get("multiscale_sizes") or []]:
+                if int(h) % (32 * self.spatial_par) != 0:
+                    raise ValueError(
+                        f"parallel.spatial={self.spatial_par} needs train "
+                        f"H={h} divisible by 32*{self.spatial_par}")
+        self.non_data = non_data
         # the data-parallel width of a host: the batch size is a host's
         local = distributed.host_info()[3]
-        data_par = max(local // self.pipe_par, 1)
+        data_par = max(local // non_data, 1)
         bs = self.datamodule.train_batch_size
         if self.pipe_par > 1:
             backbone = type(self.model.module.backbone)
@@ -210,15 +266,18 @@ class Trainer:
         self.data_par = data_par
         if self.world == 1:
             return None
-        return Layout(self.world // self.pipe_par, self.pipe_par)
+        return Layout(self.world // non_data, self.pipe_par,
+                      model=self.model_par, spatial=self.spatial_par,
+                      expert=self.expert_par)
 
     def _rows(self) -> slice | None:
-        """This rank's rows of its host's batch, None in one process."""
+        """This rank's rows of its host's batch (its data rank's), None in
+        one process."""
         if self.layout is None:
             return None
         local_rank = distributed.host_info()[2]
         n = self.datamodule.train_batch_size // self.data_par
-        start = (local_rank // self.pipe_par) * n
+        start = (local_rank // self.non_data) * n
         return slice(start, start + n)
 
     @property
@@ -344,18 +403,15 @@ class Trainer:
                resume_from: str | None, resume: bool):
         self._steps_per_epoch = steps_per_epoch
         total_steps = steps_per_epoch * self.max_epochs
+        # (the whole module: the engine shards it)
+        n_params, flops, summary = model_summary(
+            self.model.module, input_size=self.datamodule.train_size)
         self.state = self._build_state(total_steps)
 
         start_epoch = 0
         if resume_from or resume:
             start_epoch = self._restore(resume_from, resume)
 
-        if self.state.parallel is not None:
-            self.state.parallel.gather_params()
-        n_params, flops, summary = model_summary(
-            self.model.module, input_size=self.datamodule.train_size)
-        if self.state.parallel is not None:
-            self.state.parallel.release_params()
         if self.main:
             print(summary)
         self.logger.log_hyperparams(
@@ -578,11 +634,12 @@ class Trainer:
     # --------------------------------------------------------- checkpoints
 
     def _ckpt_tree(self) -> dict:
-        """The state in the single-process format (under ZeRO gathered
-        from the ranks' shards: a collective call)."""
+        """The state in the single-process format (under ZeRO, tensor or
+        expert parallelism gathered from the ranks' slices: a collective
+        call)."""
         s = self.state
         par = s.parallel
-        if par is not None and par.zero:
+        if par is not None and par.sliced:
             return {"step": s.step, "module": par.module_state_dict(),
                     "ema_module": (par.ema_state_dict() if s.sharded_ema
                                    else None),
@@ -609,7 +666,7 @@ class Trainer:
                else self.ckpt if path is None else CheckpointManager(path))
         restored = mgr.restore(map_location=self.device)
         s = self.state
-        par = s.parallel if s.parallel is not None and s.parallel.zero \
+        par = s.parallel if s.parallel is not None and s.parallel.sliced \
             else None
         if par is not None:
             par.load_module_state_dict(restored["module"])

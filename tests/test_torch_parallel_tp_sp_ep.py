@@ -1,0 +1,884 @@
+"""Tensor, spatial and expert parallelism (`pl_yolo_tpu_torch/parallel/`:
+cout-sharded convs, bands of rows with halo exchanges, sharded MoE experts)
+and the MoE FFN of the global batch under data parallelism, on the CPU over
+gloo, at narrow widths and 64 px.
+
+One 4-process spawn (`python tests/test_torch_parallel_tp_sp_ep.py ranks
+RANK 4 PORT OUT COCO`) runs every multi-rank case in turn: model 2 x
+spatial 2 (the narrow `yolox_s_tp2sp2.yaml`, its train steps and
+`Trainer.fit`), data 2 x spatial 2 and data 2 x model 2 (each axis alone
+beside the data axis), data 2 x expert 2 (the tiny MoE ViT of
+`tests/test_parallel_ep.py`, whose experts overflow), the MoE FFN on the
+data 2 ranks, and the halo exchange on spatial 2 and spatial 4. A fifth
+child (`jax`) runs the JAX package's steps on `make_mesh(model=2,
+spatial=2)` and `make_mesh(data=2, expert=2)` of the conftest's virtual
+devices, its `state_specs`, and its `moe_ffn` of the global batch. This
+process meanwhile computes the one-process references and fits one
+process. The parametrised tests below assert on the children's files.
+
+Tolerances:
+  * float64, the ranks against one process on the global batch (two
+    augmented steps of the narrow YOLOX): 1e-9 of each tensor's change,
+    and of each loss, and of the scale of the eval predictions through
+    the gathered EMA. The same function; only the order of the sums
+    differs (BatchNorm's statistics over the norm group, the gradients
+    summed, the conv's input gradient summed over the model group);
+  * fp32, two steps of the 4 ranks against the JAX package's 1x2x2 mesh
+    step: the bounds of `tests/test_parallel_sp.py`, each loss at rtol
+    2e-4 and each parameter at rtol 2e-3 / atol 2e-5; and each
+    parameter's change at SLICE_TOL (5e-3) of the JAX step's change
+    (worst seen 1.8e-3);
+  * the tiny MoE ViT in fp32 (its position table is resized in fp32):
+    against one process, each loss at 1e-5 relative and each parameter's
+    change at 1e-3 of the change; against the JAX package's data 2 x
+    expert 2 step, the loss at 1e-3 relative (`tests/test_parallel_ep.py`)
+    and each parameter's change at 5e-3 of the change (the state bound of
+    `tests/test_torch_train.py`);
+  * the halo exchange and the MoE FFN, float64: 1e-12 of the scale (the
+    same sums on rows fetched from other ranks);
+  * the trainer, fp32: the 4-rank fit's checkpoint against the
+    one-process fit's, each tensor to 5e-3 of its change; the resumed 4
+    ranks gather the checkpoint back bit for bit.
+
+A tensor whose change is below 1e-3 of the largest change of its tree is
+held to that floor instead.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
+
+# (the child processes run this file as a script: the repo root and the
+# tests directory, which pytest's conftest puts on the path, by hand)
+from pl_yolo_tpu_torch.data.augment import (  # noqa: E402
+    AugmentConfig, make_augment_fn)
+from pl_yolo_tpu_torch.layers import blocks  # noqa: E402
+from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d  # noqa: E402
+from pl_yolo_tpu_torch.models.backbones.vit import moe_ffn  # noqa: E402
+from pl_yolo_tpu_torch.models.detector import build_model  # noqa: E402
+from pl_yolo_tpu_torch.parallel import distributed, mesh  # noqa: E402
+from pl_yolo_tpu_torch.parallel import tensor  # noqa: E402
+from pl_yolo_tpu_torch.parallel.zero import DataParallel  # noqa: E402
+from pl_yolo_tpu_torch.train.optim import build_optimizer  # noqa: E402
+from pl_yolo_tpu_torch.train.state import (  # noqa: E402
+    TrainState, make_eval_step, make_train_step)
+from pl_yolo_tpu_torch.train.trainer import Trainer  # noqa: E402
+from pl_yolo_tpu_torch.utils.config import (  # noqa: E402
+    CONFIG_DIR, load_config)
+
+# one intra-op thread a test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
+NUM_CLASSES, SIZE, BATCH, STEPS, BASE_LR = 3, 64, 4, 2, 5e-4
+F64_TOL, HALO_TOL, FP32_RATIO_TOL = 1e-9, 1e-12, 1e-6
+SP_LOSS_RTOL, SP_PARAM_RTOL, SP_PARAM_ATOL = 2e-4, 2e-3, 2e-5
+MOE_LOSS_TOL, MOE_TOL, JAX_MOE_LOSS_TOL, SLICE_TOL = 1e-5, 1e-3, 1e-3, 5e-3
+# the float64 layouts, (data, Layout keywords), against one process
+F64_LAYOUTS = {"model2_spatial2": (1, {"model": 2, "spatial": 2}),
+               "data2_spatial2": (2, {"spatial": 2}),
+               "data2_model2": (2, {"model": 2})}
+# the halo cases: (op, ksize, stride) of the YOLOX path x (spatial width,
+# rows a band); the 13-pool on one-row bands reaches past the next band
+HALO_OPS = {"conv3": (3, 1), "conv3_s2": (3, 2), "pool5": (5, 1),
+            "pool9": (9, 1), "pool13": (13, 1)}
+HALO_BANDS = {"s2_rows1": (2, 1), "s2_rows4": (2, 4), "s4_rows1": (4, 1),
+              "s4_rows2": (4, 2)}
+# (a stride-2 conv takes bands of even rows)
+HALO_CASES = [(op, band) for op in sorted(HALO_OPS)
+              for band in sorted(HALO_BANDS)
+              if HALO_BANDS[band][1] % HALO_OPS[op][1] == 0]
+
+
+# ------------------------------------------------------------------ inputs
+
+def _yolox_cfg():
+    """yolox_s_tp2sp2.yaml at the narrow widths of `__graft_entry__.py`,
+    in fp32."""
+    cfg = load_config(CONFIG_DIR / "model" / "yolox_s_tp2sp2.yaml")
+    cfg["backbone"].update(channels=[8, 16, 32, 64, 128], depths=[1, 1, 1, 1])
+    cfg["neck"]["channels"] = cfg["head"]["channels"] = [32, 64, 128]
+    cfg["dtype"] = None
+    cfg["optimizer"]["learning_rate"] = BASE_LR
+    return cfg
+
+
+def _moe_cfg():
+    """`tests/test_parallel_ep.py`'s tiny MoE ViT detector, its experts
+    overflowing (capacity factor 0.5), at a base LR of 5e-4."""
+    return {"name": "tiny_vit_moe_ep", "dtype": "float32",
+            "backbone": {"name": "vision_transformer", "embed_dim": 32,
+                         "depth": 2, "num_heads": 2, "patch_size": 16,
+                         "moe_experts": 4, "moe_capacity": 0.5},
+            "neck": {"name": "csppafpn", "channels": [16, 16, 32],
+                     "depths": [1, 1, 1, 1]},
+            "head": {"name": "decoupled_head", "channels": [16, 16, 32]},
+            "loss": {"name": "yolox"},
+            "optimizer": {"name": "sgd", "learning_rate": BASE_LR,
+                          "momentum": 0.9, "weight_decay": 0.0005,
+                          "warmup": 0.1}}
+
+
+def _batch(seed=0, dtype=np.uint8):
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3)).astype(dtype)
+    labels = np.zeros((BATCH, 6, 5), np.float32)
+    labels[:, :3, 0] = rng.integers(0, NUM_CLASSES, (BATCH, 3))
+    labels[:, :3, 1:3] = rng.uniform(12, 52, (BATCH, 3, 2))
+    labels[:, :3, 3:] = rng.uniform(8, 40, (BATCH, 3, 2))
+    return torch.from_numpy(images), torch.from_numpy(labels)
+
+
+def _moe_params(dtype=torch.float64):
+    """One MoE layer ([E=4, d=8, m=16]) whose router favours expert 0, so
+    that it overflows at a capacity factor of 0.5."""
+    g = torch.Generator().manual_seed(0)
+    p = {"moe_router": torch.randn(8, 4, generator=g, dtype=dtype) * 0.1,
+         "moe_w1": torch.randn(4, 8, 16, generator=g, dtype=dtype) * 0.1,
+         "moe_b1": torch.randn(4, 16, generator=g, dtype=dtype) * 0.1,
+         "moe_w2": torch.randn(4, 16, 8, generator=g, dtype=dtype) * 0.1,
+         "moe_b2": torch.randn(4, 8, generator=g, dtype=dtype) * 0.1}
+    p["moe_router"][:, 0] += 0.3
+    y = torch.randn(BATCH, 6, 8, generator=g, dtype=dtype).abs()
+    return p, y
+
+
+def _halo_input(name, band_rows, width):
+    """The whole map of a halo case [2, 4, band_rows·width, 8] and the
+    weights of its conv and of its output's test function."""
+    ksize, stride = HALO_OPS[name]
+    g = torch.Generator().manual_seed(ksize * 10 + band_rows + width)
+    h = band_rows * width
+    x = torch.randn(2, 4, h, 8, generator=g, dtype=torch.float64)
+    w = torch.randn(6, 4, ksize, ksize, generator=g, dtype=torch.float64)
+    out = torch.randn(2, 6 if name.startswith("conv") else 4, h // stride,
+                      8 // stride, generator=g, dtype=torch.float64)
+    return x, w, out
+
+
+def _halo_apply(name, x, w):
+    ksize, stride = HALO_OPS[name]
+    if name.startswith("pool"):
+        return blocks.max_pool_same(x, ksize)
+    conv = torch.nn.Conv2d(4, 6, ksize, stride, (ksize - 1) // 2,
+                           bias=False).double()
+    with torch.no_grad():
+        conv.weight.copy_(w)
+    return blocks._conv(conv, x, None)
+
+
+def _halo_run(name, x, w, out_weight, rows=None):
+    """The op on x (or on its rows `rows`), and the gradient of
+    sum(op · out_weight) w.r.t. x."""
+    x = (x if rows is None else x[:, :, rows]).clone().requires_grad_()
+    y = _halo_apply(name, x, w)
+    stride = HALO_OPS[name][1]
+    ow = out_weight if rows is None else out_weight[
+        :, :, rows.start // stride:rows.stop // stride]
+    (y * ow).sum().backward()
+    return {"out": y.detach(), "grad": x.grad}
+
+
+# -------------------------------------------------------------- the runs
+
+def _yolox_run(layout, rows, dtype=torch.float64, augment=True):
+    """Two train steps of the narrow YOLOX on rows `rows` of the global
+    batch (augmented: the s2d augmentation, as the trainer feeds a Focus
+    stem), under `layout` through the engine, else in one process; the
+    state gathered as one process keeps it, and the eval predictions of
+    the global batch through the state's `eval_module` (under the layout
+    the EMA gathered from the ranks' parts)."""
+    cfg = _yolox_cfg()
+    model = build_model(cfg, NUM_CLASSES, device="cpu",
+                        input_size=(SIZE, SIZE))
+    model.module.to(dtype)
+    init = {k: v.clone() for k, v in model.module.state_dict().items()}
+    engine = (DataParallel(model.module, layout) if layout is not None
+              else None)
+    optimizer, _ = build_optimizer(
+        model.module, cfg["optimizer"], 10,
+        **(engine.optimizer_views() if engine is not None else {}))
+    state = TrainState.create(model.module, optimizer, parallel=engine)
+
+    def apply(module, x):
+        if not augment:
+            return module(x.to(dtype))
+        with stem_input_s2d():
+            return module(x.to(dtype))
+    step = make_train_step(
+        model.loss.train_loss,
+        augment_fn=(make_augment_fn(AugmentConfig(
+            max_labels=20, pixel_dtype="float32"), out_s2d=True)
+            if augment else None), apply_fn=apply)
+    generator = torch.Generator().manual_seed(1)
+    images, labels = _batch(0)
+    if not augment:
+        images = images.float()
+    losses = [{k: float(v) for k, v in step(
+        state, images[rows], labels[rows], generator=generator).items()}
+        for _ in range(STEPS)]
+    preds = make_eval_step(model.loss.eval_decode)(state.eval_module,
+                                                   images.to(dtype))
+    if engine is not None:
+        # (the EMA as validation takes it: gathered from the ranks' parts
+        # where they hold parts, the EMA copy itself where they do not)
+        out = {"params": engine.module_state_dict(),
+               "ema": state.eval_module.state_dict(),
+               "optimizer": engine.optimizer_state_dict(),
+               "bytes": engine.state_bytes(), "specs": sorted(engine.specs)}
+    else:
+        out = {"params": state.module.state_dict(),
+               "ema": state.ema_module.state_dict(),
+               "optimizer": state.optimizer.state_dict()}
+    out["opt_state"] = {f"{i}/{k}": v for i, st in out.pop(
+        "optimizer")["state"].items() for k, v in st.items()
+        if isinstance(v, torch.Tensor) and v.ndim}
+    out.update(losses=losses, init=init, preds=preds)
+    return _detach(out)
+
+
+def _moe_run(layout, rows, steps=STEPS):
+    """`steps` un-augmented fp32 train steps of the tiny MoE ViT detector
+    on rows `rows` of the global batch."""
+    cfg = _moe_cfg()
+    model = build_model(copy.deepcopy(cfg), NUM_CLASSES, device="cpu",
+                        input_size=(SIZE, SIZE))
+    init = {k: v.clone() for k, v in model.module.state_dict().items()}
+    engine = (DataParallel(model.module, layout) if layout is not None
+              else None)
+    optimizer, _ = build_optimizer(
+        model.module, cfg["optimizer"], 10,
+        **(engine.optimizer_views() if engine is not None else {}))
+    state = TrainState.create(model.module, optimizer, parallel=engine)
+    step = make_train_step(model.loss.train_loss)
+    images, labels = _batch(5, np.float32)
+    losses = [{k: float(v) for k, v in step(state, images[rows],
+                                            labels[rows]).items()}
+              for _ in range(steps)]
+    params = (engine.module_state_dict() if engine is not None
+              else state.module.state_dict())
+    return _detach({"losses": losses, "params": params, "init": init,
+                    "specs": sorted(engine.specs) if engine else []})
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detach(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+def _rows(layout):
+    per = BATCH // layout.data
+    return slice(layout.data_index * per, (layout.data_index + 1) * per)
+
+
+# ----------------------------------------------------------- the trainer
+
+def _trainer_cfgs(root, out_dir, parallel=True):
+    model_cfg = _yolox_cfg()
+    # mosaic on in the one epoch: the no-aug epochs' L1 term takes the
+    # sign of residuals near zero, so that two fp32 runs of one process on
+    # 1 and 4 threads already differ by ~1e-2 of an early conv's change
+    model_cfg.update(name="tiny", schedule={"no_aug_epochs": 0})
+    if not parallel:
+        model_cfg.pop("parallel")
+    data_cfg = load_config(CONFIG_DIR / "data" / "coco2017.yaml")
+    data_cfg["dataset"].update(
+        dir=str(root), train="images", val="images", test="images",
+        train_json="annotations/instances.json",
+        val_json="annotations/instances.json",
+        test_json="annotations/instances.json", train_size=[SIZE, SIZE],
+        val_size=[SIZE, SIZE], train_batch_size=BATCH, val_batch_size=2)
+    data_cfg["num_classes"] = NUM_CLASSES
+    data_cfg["classes"] = [f"class{i}" for i in range(NUM_CLASSES)]
+    return model_cfg, data_cfg, dict(max_epochs=1, logger="csv",
+                                     output_dir=str(out_dir), device="cpu",
+                                     log_every_n_steps=1)
+
+
+def _fit(root, out_dir, parallel=True):
+    """Trainer.fit for one epoch of 2 steps and its validation; under the
+    layout, the checkpoint then resumed by 4 new ranks (no step left), their
+    state gathered back."""
+    model_cfg, data_cfg, kw = _trainer_cfgs(root, out_dir, parallel)
+    trainer = Trainer(model_cfg, data_cfg, **kw)
+    trainer.fit()
+    out = {"mAP": trainer.best_map,
+           "ckpt": str(Path(out_dir) / "tiny" / "checkpoints")}
+    if parallel:
+        resumed = Trainer(model_cfg, data_cfg, **kw)
+        resumed.fit(resume=True)
+        par = resumed.state.parallel
+        out["resumed"] = _detach({
+            "step": resumed.state.step, "module": par.module_state_dict(),
+            "ema_module": par.ema_state_dict(),
+            "optimizer": par.optimizer_state_dict(),
+            "held": {n: tuple(p.shape) for n, p in
+                     resumed.state.module.named_parameters()}})
+    return out
+
+
+# ------------------------------------------------------------ the children
+
+def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
+    distributed.initialize(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world, local_world_size=world)
+    res = {}
+    layouts = {name: mesh.Layout(data, **kw)
+               for name, (data, kw) in F64_LAYOUTS.items()}
+    for name, layout in layouts.items():
+        res[f"f64/{name}"] = _yolox_run(layout, _rows(layout))
+        res[f"index/{name}"] = layout.index
+    tp_sp = layouts["model2_spatial2"]
+    res["f32/model2_spatial2"] = _yolox_run(
+        tp_sp, slice(0, BATCH), dtype=torch.float32, augment=False)
+    # the MoE FFN of the global batch on the data 2 ranks (model 2 alike)
+    data2 = layouts["data2_model2"]
+    p, y = _moe_params()
+    with mesh.use_layout(data2):
+        res["moe_ffn"] = moe_ffn(p, y[_rows(data2)], 0.5)
+    ep = mesh.Layout(2, expert=2)
+    res["ep"] = _moe_run(ep, _rows(ep))
+    # the halo exchange: every op on every band layout
+    sp4 = mesh.Layout(1, spatial=4)
+    for op, band_name in HALO_CASES:
+        width, band_rows = HALO_BANDS[band_name]
+        layout = tp_sp if width == 2 else sp4
+        rows = slice(layout.spatial_index * band_rows,
+                     (layout.spatial_index + 1) * band_rows)
+        x, w, ow = _halo_input(op, band_rows, width)
+        with mesh.use_layout(layout):
+            res[f"halo/{op}/{band_name}"] = _halo_run(op, x, w, ow, rows)
+    res["fit"] = _fit(coco, Path(out).parent / "runs4")
+    torch.save(res, out)
+    distributed.shutdown()
+
+
+def _jax(out: str) -> None:
+    """The JAX references (the conftest's JAX settings, 8 virtual devices):
+    the fp32 step of the narrow YOLOX on make_mesh(model=2, spatial=2)
+    with `sp_constraint`, the MoE ViT's step on make_mesh(data=2,
+    expert=2), both from the port's initial weights, the leaves
+    `state_specs` shards, and `moe_ffn` of the global batch."""
+    import conftest  # noqa: F401
+    import jax
+    import jax.numpy as jnp
+    from pl_yolo_tpu.layers import blocks as jb
+    from pl_yolo_tpu.models.backbones.vit import moe_ffn as jax_moe_ffn
+    from pl_yolo_tpu.models.detector import build_model as jax_build_model
+    from pl_yolo_tpu.parallel.mesh import (batch_sharding, make_mesh,
+                                           shard_batch, shard_tp,
+                                           sp_constraint, state_specs)
+    from pl_yolo_tpu.train.optim import build_optimizer as jax_optimizer
+    from pl_yolo_tpu.train.state import TrainState as JState
+    from pl_yolo_tpu.train.state import make_train_step as jax_step
+    from pl_yolo_tpu_torch import bridge
+
+    def flat(state):
+        return dict(bridge._flatten(jax.device_get(
+            {"params": state.params, "batch_stats": state.batch_stats})))
+
+    def sharded(variables, mesh_, module=None):
+        """The torch names of the params whose spec names a mesh axis."""
+        convt = bridge._conv_transposes(module)
+        leaves = bridge._flatten({"params": variables["params"]})
+        specs = state_specs({"params": variables["params"]}, mesh_)
+        names = []
+        for path, spec in jax.tree_util.tree_flatten_with_path(
+                specs, is_leaf=lambda s: isinstance(
+                    s, jax.sharding.PartitionSpec))[0]:
+            key = tuple(str(k.key) for k in path)
+            if any(a is not None for a in spec):
+                names.append(bridge._to_torch_key(key, leaves[key],
+                                                  convt)[0])
+        return sorted(names)
+
+    res = {}
+    prev = jb.get_compute_dtype()
+    jb.set_compute_dtype(None)
+    try:
+        # the narrow YOLOX on a 1 x 2 x 2 mesh
+        cfg = _yolox_cfg()
+        init = build_model(cfg, NUM_CLASSES, device="cpu",
+                           input_size=(SIZE, SIZE)).module.state_dict()
+        variables = bridge.state_dict_to_variables(
+            {k: v.float() for k, v in init.items()})
+        mesh_ = make_mesh(model=2, spatial=2, devices=jax.devices()[:4])
+        res["tp_sp_specs"] = sharded(variables, mesh_)
+        model = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
+        tx, _ = jax_optimizer(cfg["optimizer"], total_steps=10)
+        state = shard_tp(JState.create(variables, tx), mesh_)
+        step = jax_step(model.module.apply, model.loss.train_loss,
+                        donate=False, constrain_images=sp_constraint(mesh_))
+        images, labels = _batch(0)
+        b = shard_batch(mesh_, {"images": jnp.asarray(images.numpy(),
+                                                      jnp.float32),
+                                "labels": jnp.asarray(labels.numpy())})
+        losses = []
+        with mesh_:
+            for i in range(STEPS):
+                state, lo = step(state, b["images"], b["labels"],
+                                 jax.random.key(i))
+                losses.append({k: float(v) for k, v in lo.items()})
+        res["tp_sp"] = {"losses": losses, "params": flat(state)}
+        # the MoE ViT on data 2 x expert 2
+        cfg = _moe_cfg()
+        port = build_model(copy.deepcopy(cfg), NUM_CLASSES, device="cpu",
+                           input_size=(SIZE, SIZE)).module
+        variables = bridge.state_dict_to_variables(port.state_dict(), port)
+        mesh_ = make_mesh(data=2, expert=2, devices=jax.devices()[:4])
+        res["ep_specs"] = sharded(variables, mesh_, port)
+        model = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
+        tx, _ = jax_optimizer(cfg["optimizer"], total_steps=10)
+        state = shard_tp(JState.create(variables, tx), mesh_)
+        step = jax_step(model.module.apply, model.loss.train_loss,
+                        donate=False)
+        images, labels = _batch(5, np.float32)
+        imgs = jax.device_put(jnp.asarray(images.numpy()),
+                              batch_sharding(mesh_))
+        labs = jax.device_put(jnp.asarray(labels.numpy()),
+                              batch_sharding(mesh_))
+        losses = []
+        with mesh_:
+            for i in range(STEPS):
+                state, lo = step(state, imgs, labs, jax.random.key(i))
+                losses.append({k: float(v) for k, v in lo.items()})
+        convt = bridge._conv_transposes(port)
+        res["ep"] = {"losses": losses, "params": {
+            bridge._to_torch_key(k, v, convt)[0]: torch.from_numpy(
+                np.array(bridge._to_torch_key(k, v, convt)[1]))
+            for k, v in flat(state).items() if k[0] == "params"}}
+        # the MoE FFN of the global batch
+        p, y = _moe_params()
+        res["moe_ffn"] = torch.from_numpy(np.array(jax.jit(
+            jax_moe_ffn, static_argnums=2)(
+            {k: jnp.asarray(v.float().numpy()) for k, v in p.items()},
+            jnp.asarray(y.float().numpy()), 0.5)))
+    finally:
+        jb.set_compute_dtype(prev)
+    torch.save(res, out)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(kind: str, world: int, tmp: Path, coco: Path) -> list:
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = []
+    for rank in range(world):
+        out = tmp / f"{kind}_{rank}.pt"
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, kind, str(rank), str(world),
+             str(port), str(out), str(coco)], env=env, cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out))
+    return procs
+
+
+def _collect(procs, timeout=300) -> list[dict]:
+    results = []
+    for proc, out in procs:
+        log, _ = proc.communicate(timeout=timeout)
+        assert proc.returncode == 0, log[-4000:]
+        results.append(torch.load(out, weights_only=False))
+    return results
+
+
+# ----------------------------------------------------------------- fixture
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from synthetic_coco import make_coco
+    tmp = tmp_path_factory.mktemp("tp_sp_ep")
+    coco = make_coco(tmp / "coco", num_images=8, num_classes=NUM_CLASSES)
+    ranks = _spawn("ranks", 4, tmp, coco)
+    jax_child = _spawn("jax", 1, tmp, coco)
+    one = {"f64": _yolox_run(None, slice(0, BATCH)),
+           "moe": _moe_run(None, slice(0, BATCH)),
+           "fit": _fit(coco, tmp / "runs1", parallel=False)}
+    p, y = _moe_params()
+    one["moe_ffn"] = moe_ffn(p, y, 0.5)
+    one["halo"] = {(op, band): _halo_run(op, *_halo_input(
+        op, HALO_BANDS[band][1], HALO_BANDS[band][0]))
+        for op, band in HALO_CASES}
+    return {"one": one, "ranks": _collect(ranks),
+            "jax": _collect(jax_child)[0]}
+
+
+# --------------------------------------------------------------- helpers
+
+def _scale(t):
+    return float(t.double().abs().max()) if t.numel() else 0.0
+
+
+def _assert_changes_close(got: dict, want: dict, init: dict, tol: float,
+                          what: str):
+    """Each tensor's |got - want| <= tol x its change since `init` (at
+    least 1e-3 of the tree's largest change), plus 2 ulps of its value."""
+    changes = {k: _scale(want[k].double() - init[k].double()) for k in want
+               if want[k].is_floating_point()}
+    floor = 1e-3 * max(changes.values())
+    for k, change in changes.items():
+        err = _scale(got[k].double() - want[k].double())
+        ulps = 2 * torch.finfo(want[k].dtype).eps * _scale(want[k])
+        assert err <= tol * max(change, floor) + ulps, (
+            f"{what}: {k} differs by {err:.3e}, change {change:.3e}")
+
+
+def _assert_losses(got: list, want: list, rtol: float, what: str):
+    """Each logged loss within rtol (relative, at least 1.0 absolute);
+    `proportion`, a ratio of counts the loss keeps in fp32 whatever the
+    maps' dtype (each data rank's share summed), within fp32 rounding."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w), what
+        for k in w:
+            tol = max(rtol, FP32_RATIO_TOL) if k == "proportion" else rtol
+            assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), (
+                what, k, g[k], w[k])
+
+
+# ------------------------------------------------------------------ tests
+
+def test_ranks_lie_out_as_the_mesh_does(runs):
+    """rank = (((d·M + m)·S + s)·P + p)·E + e, as `make_mesh` reshapes
+    its devices (data, model, spatial, pipe, expert)."""
+    for rank, res in enumerate(runs["ranks"]):
+        assert res["index/model2_spatial2"] == {
+            "data": 0, "model": rank // 2, "spatial": rank % 2, "pipe": 0,
+            "expert": 0}
+        assert res["index/data2_spatial2"]["data"] == rank // 2
+        assert res["index/data2_model2"]["model"] == rank % 2
+
+
+@pytest.mark.parametrize("layout", sorted(F64_LAYOUTS))
+@pytest.mark.parametrize("part", ["params", "ema", "opt_state", "losses",
+                                  "preds"])
+def test_float64_steps_equal_one_process(runs, layout, part):
+    """Two augmented steps of the narrow yolox_s_tp2sp2 under model 2 x
+    spatial 2, data 2 x spatial 2 and data 2 x model 2: every rank's
+    gathered parameters, BN statistics, EMA and moments equal one
+    process's on the global batch to 1e-9 of their change, and so do its
+    losses; the eval predictions of the global batch through the EMA
+    gathered for validation (`TrainState.eval_module`) equal those of one
+    process's EMA to 1e-9 of their scale, the boxes and the scores each."""
+    ref = runs["one"]["f64"]
+    assert ref["losses"][0]["proportion"] > 0
+    for rank, res in enumerate(runs["ranks"]):
+        got = res[f"f64/{layout}"]
+        if part == "losses":
+            _assert_losses(got["losses"], ref["losses"], F64_TOL,
+                           f"rank {rank} {layout}")
+        elif part == "preds":
+            assert got["preds"].shape == ref["preds"].shape
+            for cols in (slice(0, 4), slice(4, None)):
+                err = _scale(got["preds"][..., cols] - ref["preds"][..., cols])
+                assert err <= F64_TOL * _scale(ref["preds"][..., cols]), (
+                    rank, layout, cols, err)
+        else:
+            # (the moments start at zero)
+            init = (ref["init"] if part != "opt_state" else
+                    {k: torch.zeros_like(v) for k, v in ref[part].items()})
+            assert set(got[part]) == set(ref[part])
+            _assert_changes_close(got[part], ref[part], init, F64_TOL,
+                                  f"rank {rank} {layout} {part}")
+
+
+def test_model_slices_hold_half_the_sharded_state(runs):
+    """Under model 2 each rank holds half of every sharded conv kernel,
+    and so half of its moments and EMA: the held bytes against one
+    process's."""
+    for res in runs["ranks"]:
+        b = res["f64/model2_spatial2"]["bytes"]
+        for part in ("params", "opt_state", "ema"):
+            assert 0.5 * b[f"{part}_one_process"] < b[part] < \
+                0.55 * b[f"{part}_one_process"], (part, b)
+        b = res["f64/data2_spatial2"]["bytes"]
+        assert b["params"] == b["params_one_process"]
+
+
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_model2_spatial2_step_matches_the_jax_mesh_step(runs, part):
+    """fp32, two un-augmented steps: the 4 ranks against the JAX package's
+    step on make_mesh(model=2, spatial=2) with `sp_constraint`, as
+    `tests/test_parallel_sp.py` runs it and at its bounds: the losses of
+    each step and the parameters; and each parameter's change since the
+    init within SLICE_TOL of the JAX step's change (the first step's
+    learning rate is the warmup's 1e-5 of the base, so that the second
+    step makes the change this holds).
+    (Not the BatchNorm running statistics: that mesh step keeps twice the
+    single-device ones, where make_mesh(spatial=2) and make_mesh(model=2)
+    keep them; the port keeps the single-device function's, which the
+    float64 test holds it to.)"""
+    from pl_yolo_tpu_torch import bridge
+    want = runs["jax"]["tp_sp"]
+    for rank, res in enumerate(runs["ranks"]):
+        got = res["f32/model2_spatial2"]
+        if part == "losses":
+            for g, w in zip(got["losses"], want["losses"]):
+                np.testing.assert_allclose(g["loss"], w["loss"],
+                                           rtol=SP_LOSS_RTOL)
+            continue
+        def flat(sd):
+            return {k: torch.from_numpy(np.array(v)) for k, v in dict(
+                bridge._flatten(bridge.state_dict_to_variables(sd))).items()}
+        params, init = flat(got["params"]), flat(got["init"])
+        keys = [k for k in want["params"] if k[0] == "params"]
+        assert keys and set(keys) <= set(params)
+        for k in keys:
+            np.testing.assert_allclose(params[k].numpy(),
+                                       np.asarray(want["params"][k]),
+                                       rtol=SP_PARAM_RTOL, atol=SP_PARAM_ATOL,
+                                       err_msg=f"rank {rank} {k}")
+        _assert_changes_close(
+            {k: params[k] for k in keys},
+            {k: torch.from_numpy(np.array(want["params"][k])) for k in keys},
+            {k: init[k] for k in keys}, SLICE_TOL, f"rank {rank} vs JAX")
+
+
+def test_sharded_weights_are_the_jax_specs_leaves(runs):
+    """The port's model and expert slices are the leaves the JAX package's
+    `state_specs` shards: every conv kernel whose cout the model width
+    divides (the narrow yolox_s_tp2sp2, 3 classes), and the MoE experts."""
+    jax_res = runs["jax"]
+    tp = runs["ranks"][0]["f64/model2_spatial2"]["specs"]
+    assert tp == jax_res["tp_sp_specs"]
+    assert "head.obj_pred0.weight" not in tp      # cout 1
+    assert "head.reg_pred0.weight" in tp          # cout 4
+    assert runs["ranks"][0]["f64/data2_spatial2"]["specs"] == []
+    ep = runs["ranks"][0]["ep"]["specs"]
+    assert ep == jax_res["ep_specs"]
+    assert sorted(k.split(".")[-1] for k in ep) == [
+        "blocks_moe_b1", "blocks_moe_b2", "blocks_moe_w1", "blocks_moe_w2"]
+
+
+@pytest.mark.parametrize("op,band", HALO_CASES)
+def test_halo_exchange_equals_the_unsharded_op(runs, op, band):
+    """Every windowed op of the YOLOX path on bands of rows (spatial 2 and
+    4, one to four rows a band; the 13-pool on one-row bands reaches three
+    bands away): each rank's output rows and its input gradient (the
+    halo rows' gradients sent back and summed) are the unsharded op's."""
+    width, band_rows = HALO_BANDS[band]
+    stride = HALO_OPS[op][1]
+    want = runs["one"]["halo"][op, band]
+    for rank, res in enumerate(runs["ranks"]):
+        s = rank % 2 if width == 2 else rank
+        got = res[f"halo/{op}/{band}"]
+        rows = slice(s * band_rows, (s + 1) * band_rows)
+        out_rows = slice(rows.start // stride, rows.stop // stride)
+        for part, r in (("out", out_rows), ("grad", rows)):
+            err = _scale(got[part] - want[part][:, :, r])
+            assert err <= HALO_TOL * _scale(want[part]), (op, band, rank,
+                                                          part, err)
+
+
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_expert_parallel_step_equals_one_process(runs, part):
+    """data 2 x expert 2, the tiny MoE ViT with overflowing experts, two
+    steps in fp32: against one process on the global batch."""
+    ref = runs["one"]["moe"]
+    for rank, res in enumerate(runs["ranks"]):
+        got = res["ep"]
+        if part == "losses":
+            _assert_losses(got["losses"], ref["losses"], MOE_LOSS_TOL,
+                           f"rank {rank}")
+        else:
+            _assert_changes_close(got["params"], ref["params"], ref["init"],
+                                  MOE_TOL, f"rank {rank}")
+
+
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_expert_parallel_step_matches_the_jax_mesh_step(runs, part):
+    """data 2 x expert 2 against the JAX package's step on make_mesh(
+    data=2, expert=2), from the same weights on the same batch."""
+    want = runs["jax"]["ep"]
+    got = runs["ranks"][0]["ep"]
+    if part == "losses":
+        for g, w in zip(got["losses"], want["losses"]):
+            assert abs(g["loss"] - w["loss"]) <= JAX_MOE_LOSS_TOL * abs(
+                w["loss"]), (g, w)
+    else:
+        init = {k: got["init"][k] for k in want["params"]}
+        _assert_changes_close({k: got["params"][k] for k in want["params"]},
+                              want["params"], init, SLICE_TOL, "vs JAX")
+
+
+@pytest.mark.parametrize("ref", ["one_process", "jax"])
+def test_moe_ffn_of_data_ranks_is_the_global_function(runs, ref):
+    """The C7 repair: two data ranks' `moe_ffn`, each on its rows of a
+    batch whose expert 0 overflows, give their rows of the function of the
+    global batch (one process's, and the JAX package's): the capacity
+    counts every rank's tokens and a token's position counts its expert's
+    tokens on the ranks before."""
+    want = (runs["one"]["moe_ffn"] if ref == "one_process"
+            else runs["jax"]["moe_ffn"].double())
+    tol = HALO_TOL if ref == "one_process" else 1e-5
+    per = BATCH // 2
+    p, y = _moe_params()
+    local = moe_ffn(p, y[:per], 0.5)   # rank 0's rows alone: other drops
+    assert _scale(local - want[:per]) > 1e-3
+    for rank, res in enumerate(runs["ranks"]):
+        d = rank // 2
+        err = _scale(res["moe_ffn"] - want[d * per:(d + 1) * per])
+        assert err <= tol * _scale(want), (rank, err)
+
+
+@pytest.mark.parametrize("part", ["module", "ema_module"])
+def test_four_rank_fit_checkpoint_matches_one_process(runs, part):
+    """`Trainer.fit` under model 2 x spatial 2 (torchrun's layout from
+    yolox_s_tp2sp2.yaml's `parallel:`) writes, from rank 0, a checkpoint
+    in the one-process format that a one-process fit's equals."""
+    def load(ckpt):
+        steps = sorted(Path(ckpt).glob("*/state.pt"),
+                       key=lambda p: int(p.parent.name))
+        return torch.load(steps[-1], weights_only=True)
+    four = load(runs["ranks"][0]["fit"]["ckpt"])
+    one = load(runs["one"]["fit"]["ckpt"])
+    assert four["step"] == one["step"] == 2
+    init = build_model(_yolox_cfg(), NUM_CLASSES, device="cpu",
+                       input_size=(SIZE, SIZE), seed=96).module.state_dict()
+    assert {k: v.shape for k, v in four[part].items()} == {
+        k: v.shape for k, v in one[part].items()}
+    _assert_changes_close(four[part], one[part], init, SLICE_TOL, part)
+
+
+def test_four_ranks_resume_the_checkpoint(runs):
+    """4 new ranks resume the 4-rank checkpoint: each holds its slices,
+    and gathers the checkpoint's module, EMA and optimizer back bit for
+    bit."""
+    ckpt = runs["ranks"][0]["fit"]["ckpt"]
+    steps = sorted(Path(ckpt).glob("*/state.pt"),
+                   key=lambda p: int(p.parent.name))
+    saved = torch.load(steps[-1], weights_only=True)
+    for rank, res in enumerate(runs["ranks"]):
+        got = res["fit"]["resumed"]
+        assert got["step"] == saved["step"]
+        for part in ("module", "ema_module"):
+            assert set(got[part]) == set(saved[part])
+            for k, v in saved[part].items():
+                assert torch.equal(got[part][k], v), (rank, part, k)
+        for i, st in saved["optimizer"]["state"].items():
+            for k, v in st.items():
+                assert torch.equal(got["optimizer"]["state"][i][k], v)
+        held = got["held"]["backbone.stem.conv.conv.weight"]
+        assert held[0] * 2 == saved["module"][
+            "backbone.stem.conv.conv.weight"].shape[0]
+
+
+def test_four_rank_fit_validates(runs):
+    """The 4-rank fit validated its gathered EMA on its ranks' share of
+    the images: an mAP in [0, 1] on every rank, the same on each."""
+    maps = [res["fit"]["mAP"] for res in runs["ranks"]]
+    assert all(0.0 <= m <= 1.0 for m in maps) and len(set(maps)) == 1
+
+
+def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
+    """The JAX trainer's messages for the axes' sizes (no process group:
+    a world of one), and the combinations that name ROADMAP item 12c."""
+    from synthetic_coco import make_coco
+    root = make_coco(tmp_path / "coco", num_images=2)
+    model_cfg, data_cfg, kw = _trainer_cfgs(root, tmp_path / "runs")
+    with pytest.raises(ValueError, match="must divide the device count 1"):
+        Trainer(model_cfg, data_cfg, **kw)
+    moe = _moe_cfg()
+    moe["backbone"]["moe_experts"] = 3
+    moe["parallel"] = {"expert": 1}
+    Trainer(moe, data_cfg, **kw)
+    moe["parallel"] = {"expert": 3}
+    with pytest.raises(ValueError, match="must divide the device count"):
+        Trainer(moe, data_cfg, **kw)
+    model_cfg["parallel"] = {"model": 2, "zero": True}
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        Trainer(model_cfg, data_cfg, **kw)
+    model_cfg["parallel"] = {"model": 2}
+    model_cfg["backbone"]["depthwise"] = True
+    with pytest.raises(NotImplementedError, match="grouped convs.*item 12c"):
+        Trainer(model_cfg, data_cfg, **kw)
+
+
+def test_parallel_checks_name_the_jax_messages(monkeypatch, tmp_path):
+    """The checks that need a world of several ranks, with the world's
+    size stubbed (no process group is made): the experts the expert width
+    does not divide, H against 32·spatial, and the batch against the data
+    width."""
+    from synthetic_coco import make_coco
+    root = make_coco(tmp_path / "coco", num_images=2)
+    monkeypatch.setattr(distributed, "world", lambda: (0, 4))
+    monkeypatch.setattr(distributed, "host_info", lambda: (0, 1, 0, 4))
+    from pl_yolo_tpu_torch.train import trainer as trainer_module
+    monkeypatch.setattr(trainer_module, "Layout",
+                        lambda *a, **k: ("layout", a, k))
+    model_cfg, data_cfg, kw = _trainer_cfgs(root, tmp_path / "runs")
+    tr = Trainer(model_cfg, data_cfg, **kw)
+    assert tr.data_par == 1 and tr.non_data == 4
+    moe = _moe_cfg()
+    moe["backbone"]["moe_experts"] = 3
+    moe["parallel"] = {"expert": 2}
+    with pytest.raises(ValueError, match="moe_experts divisible by it"):
+        Trainer(moe, data_cfg, **kw)
+    data_cfg["dataset"]["train_size"] = [96, 96]
+    with pytest.raises(ValueError, match="divisible by 32\\*2"):
+        Trainer(model_cfg, data_cfg, **kw)
+    data_cfg["dataset"]["train_size"] = [SIZE, SIZE]
+    data_cfg["dataset"]["train_batch_size"] = 3
+    model_cfg["parallel"] = {"spatial": 2}
+    with pytest.raises(ValueError, match="divisible by the data-parallel"):
+        Trainer(model_cfg, data_cfg, **kw)
+
+
+def test_sharded_modules_refuse_to_run_outside_a_layout():
+    """A conv holding a cout slice, or an MoE layer holding some experts,
+    runs only inside a train step's layout: outside it raises instead of
+    computing with the slice."""
+    conv = torch.nn.Conv2d(4, 8, 3, padding=1, bias=False)
+    spec = tensor.Shard(0, None, 1, 2)
+    conv.weight.data = spec.narrow(conv.weight.data).clone()
+    assert tensor.is_sharded(conv)
+    with pytest.raises(RuntimeError, match="inside a train step's layout"):
+        blocks._conv(conv, torch.zeros(1, 4, 4, 4), None)
+    p, y = _moe_params()
+    p = {k: (v[:2] if k != "moe_router" else v) for k, v in p.items()}
+    with pytest.raises(RuntimeError, match="holds 2 of 4 experts"):
+        moe_ffn(p, y, 0.5)
+
+
+def test_spec_rules_follow_the_jax_ones():
+    """`tp_spec`: a 4-D kernel whose cout the model width divides (dim 0
+    in torch's layout), nothing else; `ep_spec`: the experts' [L, E, ...]
+    tensors on E, not the router."""
+    assert tensor.tp_spec((32, 16, 3, 3), 2) == 0
+    assert tensor.tp_spec((7, 16, 3, 3), 2) is None
+    assert tensor.tp_spec((32,), 2) is None
+    assert tensor.ep_spec("backbone.blocks_moe_w1", (2, 4, 8, 16), 4) == 1
+    assert tensor.ep_spec("backbone.blocks_moe_b1", (2, 4, 16), 2) == 1
+    assert tensor.ep_spec("backbone.blocks_moe_router", (2, 8, 4), 4) is None
+    assert tensor.ep_spec("backbone.blocks_moe_w1", (2, 3, 8, 16), 2) is None
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "jax":
+        _jax(sys.argv[5])
+    else:
+        _ranks(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+               sys.argv[5], sys.argv[6])

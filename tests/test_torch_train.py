@@ -492,14 +492,14 @@ def test_config_copy_equals_the_jax_packages(path):
 
 
 def test_all_yolox_configs_are_copied():
-    """The model YAMLs the port builds: the YOLOX family (with DropBlock
-    and ZeRO), the anchor families (YOLOv7, YOLOv5-s), the transformer
+    """The model YAMLs the port builds: the YOLOX family (with DropBlock,
+    ZeRO, and tensor x spatial parallelism), the anchor families (YOLOv7, YOLOv5-s), the transformer
     backbones (Swin, ViT with and without MoE, the pipelined ViT, ResTv2,
     MCTformer) and e-YOLOX."""
     names = {p.name for p in (CONFIG_DIR / "model").glob("*.yaml")}
     assert names == (
         {f"yolox_{s}.yaml" for s in ("nano", "tiny", "s", "m", "l", "x",
-                                     "s_dropblock", "s_zero")}
+                                     "s_dropblock", "s_zero", "s_tp2sp2")}
         | {f"{n}.yaml" for n in ("yolov7", "yolov7_tiny", "al_yolov7",
                                  "al_yolov7_tiny", "gc10_yolov7",
                                  "neu_yolov7", "neu_yolov7_tiny",

@@ -237,12 +237,15 @@ def test_checkpoint_retention_matches_orbax(tmp_path):
 
 
 def test_unported_config_keys_raise_naming_their_item():
-    """Tensor, spatial and expert parallelism (ROADMAP item 12b) still
-    raise; ZeRO, GPipe, multi-scale buckets and the general-gather
-    augmentation are ported and pass."""
+    """Tensor, spatial and expert parallelism (ROADMAP item 12b) are ported
+    and pass, as do ZeRO, GPipe, multi-scale buckets and the general-gather
+    augmentation; the combinations of the parallel axes that no shipped
+    YAML uses raise naming item 12c."""
+    yolox = {k: _model_cfg()[k] for k in ("backbone", "neck", "head")}
     for key in ("model", "spatial", "expert"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            check_ported({"parallel": {key: 2}}, {})
+        check_ported({**yolox, "parallel": {key: 2}}, {})
+    check_ported(load_config(CONFIG_DIR / "model" / "yolox_s_tp2sp2.yaml"),
+                 {})
     check_ported({"parallel": {"zero": True}}, {})
     check_ported({"parallel": {"zero": 3}}, {})
     check_ported({"parallel": {"pipeline": 2}}, {})
@@ -250,6 +253,21 @@ def test_unported_config_keys_raise_naming_their_item():
     check_ported({}, {"transform": {"shear": 2.0, "degrees": 5.0,
                                     "perspective": 1e-4}})
     check_ported({"parallel": {"model": 1}}, {"transform": {}})
+    vit = load_config(CONFIG_DIR / "model" / "vit_tiny_moe.yaml")
+    depthwise = {**yolox, "backbone": {**yolox["backbone"],
+                                       "depthwise": True}}
+    for cfg in ({**yolox, "parallel": {"model": 2, "zero": True}},
+                {**yolox, "parallel": {"spatial": 2, "zero": 3}},
+                {**vit, "parallel": {"expert": 2, "zero": True}},
+                {**vit, "parallel": {"expert": 2, "pipeline": 2}},
+                {**yolox, "parallel": {"model": 2, "pipeline": 2}},
+                {**vit, "parallel": {"model": 2}},
+                {**vit, "parallel": {"spatial": 2}},
+                {**depthwise, "parallel": {"model": 2}}):
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            check_ported(cfg, {})
+    check_ported({**depthwise, "parallel": {"spatial": 2}}, {})
+    check_ported({**vit, "parallel": {"expert": 2}}, {})
 
 
 def _cli_files(root, tmp_path):
