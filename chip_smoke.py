@@ -2,8 +2,10 @@
 """Drive the PyTorch port's YOLOX-s serving and training paths, its anchor
 families (YOLOv7, YOLOv5-s, YOLOv3), its transformer backbones (Swin,
 SwinV2, ViT, ViT-MoE, ResTv2, MCTformer), its mobile backbones (e-YOLOX,
-CSPMobileNext, MobileNetV3-S/L, ShuffleNetV2) and its deploy path (a
-trained checkpoint exported and served), on one CUDA card.
+CSPMobileNext, MobileNetV3-S/L, ShuffleNetV2), its deploy path (a
+trained checkpoint exported and served), its several-rank paths, its extra
+backbones (ConvNeXt-T, EfficientRep, ResNet-18, GhostNet, VGG, MobileNeXt)
+and its attention registry, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -233,6 +235,30 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      against one process's; each rank's own calls of the warp, top-k and
      NMS kernels recorded and held to the plain versions bit for bit; a
      rank's staged collective counts; the phase's time.
+ 18. the extra backbones and the attention registry, cuDNN autotuning
+     off, TF32 off: (a) ConvNeXt-T (the JAX defaults, depths 3,3,9,3,
+     widths 96-768, fp32 whatever the config's dtype) in
+     `yolox_m.yaml`'s place of CSPDarknet (its neck and head as wide as
+     ConvNeXt-T's stage2-4 maps, bf16), 80 classes, B=16, 640^2, its
+     kernel launches counted from 0: 4 requests through `postprocess` at
+     conf 1e-6 (card == CPU postprocess), 4 steps with 50 label slots and
+     4+1 steps through the NHWC augmentation with 100, 2 top-k launches a
+     step on [16,50,8400] / [16,100,8400] rows and 2 warps an augmented
+     one; the path's own kernel calls held to the plain versions bit for
+     bit and its top-k rows to `torch.topk`; the fp32 head maps at B=1,
+     card against CPU; infer+NMS and both train steps' images/s with idle
+     share and peak memory; `python -m pl_yolo_tpu_torch -c` on that
+     config (written to a temporary file) for one epoch on 32 JPEGs and a
+     validation; (b) EfficientRep, ResNet-18, GhostNet-1.0, VGG and
+     MobileNeXt at the JAX defaults in `yolox_s.yaml`'s place of
+     CSPDarknet (a CSP-PAFPN neck of depths 1,1,1,1 and a decoupled head
+     at their stage widths): their BN statistics from one batch
+     (`calibrate_bn_`), a request and 2 augmented steps each, their
+     kernel calls held to the plain versions bit for bit; (c) every
+     `ATTENTION` entry on a seeded [4,20,20,256] map with seeded weights,
+     card against CPU in fp32: the output, the input's and every
+     parameter's gradient within ATTN_TOL of their scale, the worst
+     printed with its module; the phase's time.
 
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
@@ -245,7 +271,8 @@ YOLOX path's, which `launches_e_yolox_s` gives alone, and the deploy
 path's, which `launches_deploy` gives alone, with the kernel's times on
 the `.pt2`'s input as `ms_deploy`, `plain_ms_deploy`, `bound_ms_deploy`,
 and phase 16's, which `launches_parallel` gives alone, and phase 17's,
-which `launches_tpsp` gives alone),
+which `launches_tpsp` gives alone, and the ConvNeXt path's of phase 18,
+which `launches_extras` gives alone),
 and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
@@ -425,6 +452,29 @@ RANK_RUNS = {
 # by far less; a gather that puts a slice or a shard in the wrong place
 # moves them by O(1)
 PARALLEL_PRED_TOL = 1e-3
+# phase 18: the extra backbones, ConvNeXt-T on the YOLOX path at full width
+# (yolox_m.yaml's neck and head, as wide as ConvNeXt-T's stage2-4 maps,
+# 192/384/768), the other five at the JAX defaults with a CSP-PAFPN neck
+# and a decoupled head at their stage widths, and the attention registry
+CONVNEXT_BACKBONE = {"name": "convnext",
+                     "outputs": ["stage2", "stage3", "stage4"]}
+EXTRAS_OTHER = (("efficientrep", (64, 128, 256)), ("resnet", (128, 256, 512)),
+                ("ghostnet", (40, 112, 160)), ("vgg", (256, 512, 512)),
+                ("mobilenext", (128, 256, 512)))
+# every ATTENTION entry on a stride-32 map of a 640 px image, fp32, card
+# (TF32 off) against CPU: forward, input gradient, parameter gradients.
+# Matmuls, convs, softmaxes and FFTs sum in another order on each side,
+# and cuDNN may take an FFT or Winograd algorithm for a conv's weight
+# gradient: EPSA's 5x5 conv1 sat 3.0e-3 of its scale from the CPU's (on
+# an NVIDIA H100 80GB HBM3 at 700 W). A gradient's scale has a floor of 1e-2 of its module's largest gradient
+# (one zero in exact arithmetic is rounding noise:
+# tests/test_torch_attention.py). A fault on one device moves a tensor
+# O(1) of its scale.
+ATTN_SHAPE = (4, 20, 20, 256)
+ATTN_TOL = 1e-2  # on max |card - cpu| / scale, each tensor
+# ACmix's shift path reads C/heads of its 3·heads mixed maps: at C = 256 it
+# needs 16 heads (the JAX module fails at the default 4 there too)
+ATTN_KWARGS = {"acmix": {"heads": 16}}
 EPOCH_LINE = re.compile(r"^epoch (\d+): ([\d.]+)s \(([\d.]+) img/s\) "
                         r"loss=(\S+); ([\d.]+) img/s without the ([\d.]+)s")
 
@@ -1579,8 +1629,10 @@ def cli_epoch(config: Path, tag: str, seed: int) -> None:
                 or not math.isfinite(epochs[0][2]):
             raise AssertionError(f"{tag} CLI: exit {rc}:\n"
                                  + "\n".join(lines[-30:]))
+        shown = (config.relative_to(ROOT) if config.is_relative_to(ROOT)
+                 else config.name)
         log(f"[{tag}] CLI `python -m pl_yolo_tpu_torch -c "
-            f"{config.relative_to(ROOT)}` on {ANCHOR_CLI_IMAGES} JPEGs: exit "
+            f"{shown}` on {ANCHOR_CLI_IMAGES} JPEGs: exit "
             f"0, epoch 0 {epochs[0][1]:.1f} images/s, loss "
             f"{epochs[0][2]:.3f}; '{maps_line[-1]}'")
     finally:
@@ -3764,6 +3816,370 @@ def phase_tpsp(torch, card: str, dev) -> dict:
     return {"launches": launches, "max_abs_err": errs}
 
 
+def randomize_(torch, module, gen) -> None:
+    """Seeded values for every parameter of `module` (a kernel of
+    unit-variance outputs by its first axis, the rest N(0, 0.5²)) and its
+    BatchNorm statistics."""
+    with torch.no_grad():
+        for p in module.parameters():
+            std = p[0].numel() ** -0.5 if p.dim() >= 2 else 0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+        for name, b in module.named_buffers():
+            if name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+            elif name.endswith("running_mean"):
+                b.copy_(torch.randn(b.shape, generator=gen) * 0.1)
+
+
+def attention_card_vs_cpu(torch, dev, shape=ATTN_SHAPE) -> dict:
+    """Every ATTENTION entry on seeded NHWC maps of `shape` with seeded
+    weights, on `dev` against the CPU, fp32, eval mode: the output, the
+    input's gradient and each parameter's gradient of sum(out · cot).
+    Returns {name: (worst error of a tensor / scale, its tensor, the
+    module's seconds on the CPU, the output's error / scale)}."""
+    import copy as copy_mod
+    from pl_yolo_tpu_torch.layers.attention import ATTENTION, build_attention
+    b, h, w, c = shape
+    out = {}
+    for i, name in enumerate(sorted(ATTENTION)):
+        gen = torch.Generator().manual_seed(1800 + i)
+        module = build_attention(name, c, size=(h, w),
+                                 **ATTN_KWARGS.get(name, {}))
+        randomize_(torch, module, gen)
+        xs = [torch.randn(shape, generator=gen)
+              for _ in range(2 if name == "skff" else 1)]
+        runs = {}
+        for where in ("cpu", dev):
+            t0 = time.perf_counter()
+            m = copy_mod.deepcopy(module).to(where).eval()
+            x = [t.to(where, copy=True).requires_grad_() for t in xs]
+            y = m(x if name == "skff" else x[0])
+            if "cot" not in runs:
+                runs["cot"] = torch.randn(y.shape, generator=gen)
+            (y * runs["cot"].to(where)).sum().backward()
+            tensors = {"output": y.detach()}
+            tensors.update({f"input {j} gradient": t.grad
+                            for j, t in enumerate(x)})
+            tensors.update({f"{k} gradient": p.grad
+                            for k, p in m.named_parameters()})
+            runs[str(where)] = ({k: v.cpu() for k, v in tensors.items()},
+                                time.perf_counter() - t0)
+        (cpu, cpu_s), (card, _) = runs["cpu"], runs[str(dev)]
+        floor = 1e-2 * max(float(v.abs().max()) for k, v in cpu.items()
+                           if k != "output")
+        worst = (0.0, "output")
+        for key, want in cpu.items():
+            scale = max(float(want.abs().max()),
+                        1e-6 if key == "output" else floor)
+            err = float((card[key] - want).abs().max()) / scale
+            if not math.isfinite(err):
+                raise AssertionError(f"attention {name}: {key} not finite")
+            worst = max(worst, (err, key))
+        out[name] = (worst[0], worst[1], cpu_s,
+                     float((card["output"] - cpu["output"]).abs().max())
+                     / max(float(cpu["output"].abs().max()), 1e-6))
+    return out
+
+
+def calibrate_bn_(torch, module, x) -> None:
+    """Set every BatchNorm's running statistics to those of the batch `x`
+    (one train-mode forward at momentum 1, no gradient), and leave the
+    module in eval mode. From the seeded init (running mean 0, variance
+    1) the eval maps of EfficientRep, ResNet and GhostNet grow past what
+    the decode's exp can hold (head maps ~100-400 at 128 px on the CPU),
+    as a flax init's do; with the statistics of a batch they are those of
+    a trained model's scale."""
+    bns = [m for m in module.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    module.train()
+    with torch.no_grad():
+        module(x)
+    for m, momentum in zip(bns, saved):
+        m.momentum = momentum
+    module.eval()
+
+
+def extras_configs(load_config, validate_model_config) -> list:
+    """The other extra detectors of phase 18: (name, cfg) with yolox_s.yaml's
+    recipe, the backbone at the JAX defaults, a CSP-PAFPN neck (depths
+    1,1,1,1) and a decoupled head as wide as its stage2-4 maps."""
+    out = []
+    for name, widths in EXTRAS_OTHER:
+        cfg = validate_model_config(load_config(CONFIG), str(CONFIG))
+        cfg["backbone"] = {"name": name,
+                           "outputs": ["stage2", "stage3", "stage4"]}
+        cfg["neck"].update(channels=list(widths), depths=[1, 1, 1, 1])
+        cfg["head"]["channels"] = list(widths)
+        out.append((name, cfg))
+    return out
+
+
+def phase_extras(torch, card: str, dev) -> dict:
+    """Phase 18 (see the module docstring), on the card `dev`. Returns the
+    ConvNeXt path's launches of each kernel and each kernel's max |kernel
+    - plain| on the phase's own calls, for the `kernels` line."""
+    import yaml
+    from pl_yolo_tpu_torch.data import augment
+    from pl_yolo_tpu_torch.models.detector import build_model
+    from pl_yolo_tpu_torch.ops.cuda.topk import topk_rows
+    from pl_yolo_tpu_torch.ops.nms import postprocess
+    from pl_yolo_tpu_torch.train.optim import build_optimizer
+    from pl_yolo_tpu_torch.train.state import TrainState, make_train_step
+    from pl_yolo_tpu_torch.utils.config import (load_config,
+                                                validate_model_config)
+    t_phase = time.perf_counter()
+    record = path_call_recorder(torch)
+    torch.backends.cudnn.allow_tf32 = False  # as phase 4 left them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    autotune = torch.backends.cudnn.benchmark  # off, as in phase 14
+    torch.backends.cudnn.benchmark = False
+
+    def config(dtype="keep"):
+        path = MODEL_DIR / "yolox_m.yaml"
+        cfg = validate_model_config(load_config(path), str(path))
+        cfg["backbone"] = dict(CONVNEXT_BACKBONE)
+        if dtype != "keep":
+            cfg["dtype"] = dtype
+        return cfg
+
+    def infer(m, x):
+        preds = m.loss.eval_decode(m.module(x))
+        return preds, postprocess(preds, conf_threshold=CONF_TRAINED,
+                                  iou_threshold=IOU, max_det=MAX_DET,
+                                  pre_nms_topk=PRE_NMS_TOPK, device=dev)
+
+    def aug_step_of(model):
+        return make_train_step(
+            model.loss.train_loss,
+            augment_fn=augment.make_augment_fn(aug_cfg, out_s2d=False))
+
+    cfg = config()
+    n_anchors = sum((SIZE // s) ** 2 for s in cfg["loss"]["stride"])
+    model = build_model(cfg, NUM_CLASSES, device=dev, seed=0)
+    backbone = model.module.backbone
+    if backbone.out_channels != cfg["neck"]["channels"] or getattr(
+            type(backbone), "STEM_S2D", False):
+        raise AssertionError(f"ConvNeXt-T: widths {backbone.out_channels}, "
+                             f"or a Focus stem's route")
+    if any(p.dtype != torch.float32 for p in backbone.parameters()):
+        raise AssertionError("ConvNeXt-T holds non-fp32 parameters")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    requests = [torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+                * 255.0 for _ in range(REQUESTS)]
+    labels = train_labels(torch, dev, BATCH)
+    aug_cfg = augment.AugmentConfig(max_labels=AUG_MAX_LABELS)
+    aug_images = bench_images(torch, dev, BATCH, seed=7)
+
+    # (a) the ConvNeXt path: serving at conf 1e-6, then training without
+    # and with augmentation on the NHWC route, its launches counted from 0
+    # and its kernel calls recorded
+    note("convnext: serving")
+    reset_launch_counts()
+    served, history, aug_history = [], [], []
+    with record() as calls:
+        with torch.inference_mode():
+            for x in requests:
+                before = launch_counts()
+                served.append(infer(model, x))
+                assert_launched(before, {"nms_suppress": 1},
+                                "convnext request")
+        note("convnext: training")
+        optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                       total_steps=TOTAL_STEPS)
+        state = TrainState.create(model.module, optimizer)
+        step = make_train_step(model.loss.train_loss)
+        aug_step = aug_step_of(model)
+        for n in range(TRAIN_STEPS):
+            before = launch_counts()
+            history.append(step(state, requests[0], labels))
+            assert_launched(before, {"topk_rows": 2}, f"convnext step {n}")
+        note("convnext: augmented training")
+        for n in range(AUG_STEPS + 1):
+            before = launch_counts()
+            aug_history.append(aug_step(state, aug_images, labels,
+                                        generator=gen,
+                                        aug_enable=n < AUG_STEPS))
+            assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                            f"convnext augmented step {n}")
+    torch.cuda.synchronize()
+    path_launches = launch_counts()
+    if not all(path_launches[n] > 0 for n in GATE_KERNELS):
+        raise AssertionError(f"the convnext path skipped a kernel: "
+                             f"{path_launches}")
+    for preds, det in served:
+        served_ok(torch, "convnext serving", preds, det, n_anchors,
+                  CONF_TRAINED)
+    for what, hist in (("step", history), ("augmented step", aug_history)):
+        for n, losses in enumerate(hist):
+            trained_ok(torch, f"convnext {what} {n}", losses)
+    rows = {key[0][0]: by for key, by in calls["topk_rows"].items()}
+    if set(rows) != {(BATCH, MAX_LABELS, n_anchors),
+                     (BATCH, AUG_MAX_LABELS, n_anchors)}:
+        raise AssertionError(f"the convnext path's top-k rows: {list(rows)}")
+    log(f"[extras] ConvNeXt-T (depths {list(backbone.depths)}, stage2-4 "
+        f"{backbone.out_channels}, fp32) + yolox_m.yaml neck "
+        f"{cfg['neck']['name']} {cfg['neck']['channels']} and head "
+        f"{cfg['head']['channels']}, {cfg['dtype']}: {REQUESTS} requests of "
+        f"{BATCH}x{SIZE}x{SIZE} through eval_decode and postprocess at conf "
+        f"{CONF_TRAINED} (shapes, finiteness, card == CPU postprocess; kept "
+        f"{[int(d.valid.sum()) for _, d in served]}); {TRAIN_STEPS} steps "
+        f"(M={MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in history)
+        + f"; {AUG_STEPS}+1 augmented steps (NHWC, M={AUG_MAX_LABELS}), loss "
+        + " ".join(f"{float(h['loss']):.4f}" for h in aug_history)
+        + f"; proportion {float(history[-1]['proportion']):.3f} / "
+        f"{float(aug_history[-2]['proportion']):.3f}; launches on the path "
+        f"{path_launches}")
+
+    # the kernels on the path's own calls, bit for bit; the top-k also
+    # against torch.topk
+    note("convnext: the path's kernel calls")
+    checks = path_calls_equal_plain(torch, calls, "the convnext path")
+    for shape, by in rows.items():
+        for args, _ in by:
+            got = topk_rows(*args)
+            if not torch.equal(got, torch.topk(args[0], args[1],
+                                               dim=-1).values):
+                raise AssertionError(f"topk_rows != torch.topk on the "
+                                     f"convnext path's rows {shape}")
+    log(f"[extras] kernel == plain (bit for bit) on the path's own calls: "
+        f"{describe_path_checks(checks)}; topk_rows == torch.topk on each "
+        f"recorded row set, on {card}")
+    del calls, rows
+
+    # card against CPU: the fp32 head maps at B=1 (TF32 off)
+    note("convnext: card against CPU")
+    x1 = requests[0][:1]
+    fp32 = build_model(config(None), NUM_CLASSES, device=dev, seed=0)
+    with torch.inference_mode():
+        maps_card = [m.cpu() for m in fp32.module(x1)]
+        cpu_model = build_model(config(None), NUM_CLASSES, device="cpu",
+                                seed=0)
+        maps_cpu = cpu_model.module(x1.cpu())
+    scale = max(1.0, max(float(m.abs().max()) for m in maps_cpu))
+    err = max(float((a - b).abs().max()) for a, b in zip(maps_card, maps_cpu))
+    log(f"[extras] ConvNeXt-T + yolox_m fp32 head maps card vs CPU at B=1: "
+        f"max abs err {err:.3e} (max |map| {scale:.3f}, tolerance "
+        f"{MAPS_TOL} x scale)")
+    if not err <= MAPS_TOL * scale:
+        raise AssertionError(f"ConvNeXt-T fp32 head maps differ: {err}")
+    del fp32, cpu_model
+
+    # times, on a state whose learning rate stays near 0 (see phase 9)
+    note("convnext: times")
+    torch.cuda.empty_cache()
+    model.module.eval()
+    with torch.inference_mode():
+        infer_ms = cuda_ms(torch, lambda: infer(model, requests[0]), 5, 1)
+        infer_busy, _ = device_profile(torch, lambda: infer(
+            model, requests[0]), 2)
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"],
+                                   total_steps=10 ** 9)
+    state = TrainState.create(model.module, optimizer)
+    timed = {}
+    for what, fn in (("un-augmented", lambda: step(state, requests[0],
+                                                   labels)),
+                     ("augmented (NHWC)", lambda: aug_step(
+                         state, aug_images, labels, generator=gen))):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, fn, iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, top = device_profile(torch, fn, 1)
+        timed[what] = (ms, busy, peak, top)
+    log(f"[time] convnext_t infer+NMS (conf {CONF_TRAINED}) bf16 head "
+        f"B={BATCH}: {infer_ms:.3f} ms/batch, "
+        f"{BATCH * 1000.0 / infer_ms:.1f} images/s, device busy "
+        f"{infer_busy:.3f} ms (idle share {1.0 - infer_busy / infer_ms:.3f})"
+        f" on {card}")
+    for what, (ms, busy, peak, top) in timed.items():
+        log(f"[time] convnext_t {what} train step B={BATCH}: {ms:.3f} "
+            f"ms/step, {BATCH * 1000.0 / ms:.1f} images/s, device busy "
+            f"{busy:.3f} ms (idle share {1.0 - busy / ms:.3f}), peak "
+            f"device memory {peak:.2f} GiB on {card}; top kernels, ms "
+            f"a step: " + "; ".join(f"{t:.4f} {name[:48]}"
+                                    for name, t in top[:6]))
+    del state, optimizer, step, aug_step, model
+    torch.cuda.empty_cache()
+
+    # the CLI on a few JPEGs, from the config written to a temporary file
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_extras_"))
+    try:
+        (tmp / "convnext_t.yaml").write_text(yaml.safe_dump(config()))
+        cli_epoch(tmp / "convnext_t.yaml", "extras", seed=8)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) the other extras: a request and 2 augmented steps each on the
+    # NHWC route, their kernel calls held to the plain versions
+    with record() as calls:
+        for name, c in extras_configs(load_config, validate_model_config):
+            note(name)
+            t0 = time.perf_counter()
+            m = build_model(c, NUM_CLASSES, device=dev, seed=0)
+            if m.module.backbone.out_channels != c["neck"]["channels"]:
+                raise AssertionError(f"{name}: stage widths "
+                                     f"{m.module.backbone.out_channels}")
+            calibrate_bn_(torch, m.module, requests[2])
+            before = launch_counts()
+            with torch.inference_mode():
+                preds, det = infer(m, requests[1])
+            assert_launched(before, {"nms_suppress": 1}, f"{name} request")
+            served_ok(torch, f"{name} request", preds, det, n_anchors,
+                      CONF_TRAINED)
+            optimizer, _ = build_optimizer(m.module, c["optimizer"],
+                                           total_steps=TOTAL_STEPS)
+            state = TrainState.create(m.module, optimizer)
+            step = aug_step_of(m)
+            losses = []
+            for n in range(OTHER_AUG_STEPS):
+                before = launch_counts()
+                losses.append(step(state, aug_images, labels, generator=gen))
+                assert_launched(before, {"topk_rows": 2, "mosaic_warp": 2},
+                                f"{name} augmented step {n}")
+                trained_ok(torch, f"{name} augmented step {n}", losses[-1])
+            torch.cuda.synchronize()
+            log(f"[extras] {name} (stage2-4 {c['neck']['channels']}, "
+                f"{c['dtype']}): BN statistics of one batch, a request (kept "
+                f"{int(det.valid.sum())}), "
+                f"{OTHER_AUG_STEPS} augmented steps (NHWC), loss "
+                + " ".join(f"{float(h['loss']):.4f}" for h in losses)
+                + f"; {time.perf_counter() - t0:.1f} s with the build")
+            del m, preds, det, state, optimizer, step
+            torch.cuda.empty_cache()
+    other = path_calls_equal_plain(torch, calls, "the other extras")
+    log(f"[extras] kernel == plain (bit for bit) on the other extras' own "
+        f"calls: {describe_path_checks(other)}")
+    del calls
+
+    # (c) every ATTENTION entry, card against CPU
+    note("attention registry")
+    t0 = time.perf_counter()
+    attn = attention_card_vs_cpu(torch, dev)
+    name, (worst, tensor, _, _) = max(attn.items(), key=lambda kv: kv[1][0])
+    out_name, out_err = max(((n, v[3]) for n, v in attn.items()),
+                            key=lambda kv: kv[1])
+    slow = sorted(attn.items(), key=lambda kv: -kv[1][2])[:3]
+    log(f"[extras] {len(attn)} ATTENTION entries on {list(ATTN_SHAPE)} fp32 "
+        f"(NHWC; {ATTN_KWARGS} set), eval forward, input and parameter "
+        f"gradients, card (TF32 off) vs CPU: worst {worst:.3e} of its scale "
+        f"({name}: {tensor}; tolerance {ATTN_TOL}), the worst output "
+        f"{out_err:.3e} ({out_name}); "
+        f"{time.perf_counter() - t0:.1f} s, the CPU's longest "
+        + ", ".join(f"{n} {v[2]:.1f} s" for n, v in slow))
+    bad = {n: v for n, v in attn.items() if not v[0] <= ATTN_TOL}
+    if bad:
+        raise AssertionError(f"attention card vs CPU beyond {ATTN_TOL}: {bad}")
+
+    torch.backends.cudnn.benchmark = autotune
+    log(f"[extras] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    errs = {n: max(checks[n][0], other[n][0]) for n in checks}
+    return {"launches": {n: path_launches[n] for n in kernel_wrappers()},
+            "max_abs_err": errs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4840,6 +5256,15 @@ def main() -> int:
     topk_err = max(topk_err, tpsp["max_abs_err"]["topk_rows"])
     warp_err = max(warp_err, tpsp["max_abs_err"]["mosaic_warp"])
 
+    # 18. the extra backbones and the attention registry: the ConvNeXt
+    # path's launches are added, and given alone as "launches_extras"
+    note("extras")
+    extras = phase_extras(torch, card, dev)
+    ex = extras["launches"]
+    max_err = max(max_err, extras["max_abs_err"]["nms_suppress"])
+    topk_err = max(topk_err, extras["max_abs_err"]["topk_rows"])
+    warp_err = max(warp_err, extras["max_abs_err"]["mosaic_warp"])
+
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -4848,8 +5273,9 @@ def main() -> int:
         "replaces": "pl_yolo_tpu/ops/pallas/nms_pallas.py:29",
         "launches": (nms_launches + e_yolox["nms_suppress"]
                      + deploy["launches"] + pl["nms_suppress"]
-                     + tl["nms_suppress"]),
+                     + tl["nms_suppress"] + ex["nms_suppress"]),
         "launches_e_yolox_s": e_yolox["nms_suppress"],
+        "launches_extras": ex["nms_suppress"],
         "launches_deploy": deploy["launches"],
         "launches_parallel": pl["nms_suppress"],
         "launches_tpsp": tl["nms_suppress"], "max_abs_err": max_err,
@@ -4863,8 +5289,9 @@ def main() -> int:
         "source": "pl_yolo_tpu_torch/csrc/topk_rows.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/topk_pallas.py:26",
         "launches": (topk_launches + e_yolox["topk_rows"] + pl["topk_rows"]
-                     + tl["topk_rows"]),
+                     + tl["topk_rows"] + ex["topk_rows"]),
         "launches_e_yolox_s": e_yolox["topk_rows"],
+        "launches_extras": ex["topk_rows"],
         "launches_parallel": pl["topk_rows"],
         "launches_tpsp": tl["topk_rows"], "max_abs_err": topk_err,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
@@ -4875,8 +5302,10 @@ def main() -> int:
         "source": "pl_yolo_tpu_torch/csrc/mosaic_warp.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/mosaic_pallas.py:71",
         "launches": (warp_launches + e_yolox["mosaic_warp"]
-                     + pl["mosaic_warp"] + tl["mosaic_warp"]),
+                     + pl["mosaic_warp"] + tl["mosaic_warp"]
+                     + ex["mosaic_warp"]),
         "launches_e_yolox_s": e_yolox["mosaic_warp"],
+        "launches_extras": ex["mosaic_warp"],
         "launches_parallel": pl["mosaic_warp"],
         "launches_tpsp": tl["mosaic_warp"], "max_abs_err": warp_err,
         "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
@@ -4886,8 +5315,10 @@ def main() -> int:
         "name": "simota_assign", "route": "cuda",
         "source": "pl_yolo_tpu_torch/csrc/simota_assign.cu",
         "replaces": "pl_yolo_tpu/ops/pallas/simota_pallas.py:49",
-        "launches": simota_launches + e_yolox["simota_assign"],
-        "launches_e_yolox_s": e_yolox["simota_assign"], "max_abs_err": simota_err,
+        "launches": (simota_launches + e_yolox["simota_assign"]
+                     + ex["simota_assign"]),
+        "launches_e_yolox_s": e_yolox["simota_assign"],
+        "launches_extras": ex["simota_assign"], "max_abs_err": simota_err,
         "ms": simota_mean("ms"), "plain_ms": simota_mean("plain_ms"),
         "bound_ms": simota_mean("bound_ms"),
         "bound_by": simota_recs["M=100 augmented step"]["bound_by"],

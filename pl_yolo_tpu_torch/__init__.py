@@ -55,6 +55,10 @@ maybe_checkpoint`), `optimizer: {accumulate_steps}`, multi-scale buckets
 (`data.augment.multiscale_resize`) and the general-gather augmentation
 for degrees, shear and perspective.
 
+Slice 15 covers the extra backbones (`models.backbones.extras`:
+EfficientRep, ResNet, ConvNeXt, GhostNet, VGG, MobileNeXt) and the plug-in
+attention registry (`layers.attention.ATTENTION`, `build_attention`).
+
 Layouts at the public edges follow the JAX package: images [B,H,W,3] in
 0-255 float, per-level head maps [B,H,W,5+C] out. Entry points place
 tensors on the card unless the caller passes `device="cpu"`.

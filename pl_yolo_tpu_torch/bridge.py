@@ -12,6 +12,12 @@ change for kernels:
         nn.ConvTranspose (kernel = stride)               [cin,cout,kh,kw],
                                                          spatially flipped
     params/<path>/kernel   [in,out] (nn.Dense)      <-> <path>.weight [out,in]
+    params/<path>/kernel   3-D: [k,cin/g,cout] of a <-> <path>.weight, its
+        1-D nn.Conv; [in,heads,hd] / [heads,hd,out]      axes reversed
+        of nn.MultiHeadDotProductAttention               (Conv1d's
+                                                         [cout,cin/g,k]; the
+                                                         attention layers'
+                                                         `DenseGeneral`)
     params/<path>/bias                              <-> <path>.bias
     params/<path>/scale    (BatchNorm, LayerNorm)   <-> <path>.weight
     batch_stats/<path>/mean, var                    <-> <path>.running_mean,
@@ -21,13 +27,17 @@ change for kernels:
     params/<path>/<any other leaf>                  <-> <path>.<leaf>, as is
         (the transformer backbones' free parameters: `pos_embed`,
          `cls_token`, `relative_position_bias_table`, `logit_scale`, the
-         stacked towers' `blocks_*` [L, ...], ...)
+         stacked towers' `blocks_*` [L, ...], ...; the attention modules'
+         `gamma`, `rate1`, ..., and SGE's `weight` / `bias` [1,1,1,g])
 
 flax's transposed conv with kernel = stride is torch's `conv_transpose2d`
 with the kernel flipped in both spatial axes. A `ConvTranspose2d`'s weight
 has the shape of a conv weight, so the functions that go from torch to
 flax, and from flax to torch without a module, tell it apart only by the
-`module` they are given (`load_variables` always has one).
+`module` they are given (`load_variables` always has one). In the same way,
+a free parameter named `weight` (SGE's) maps as is only where the `module`
+given shows that its owner is no conv, dense or norm layer; without a
+module a 4-D `weight` is a conv kernel.
 `ia{k}` and `im{k}` are the implicit head's priors.
 
 `num_batches_tracked` (torch only) is written as 0 and dropped on the way
@@ -73,6 +83,22 @@ def _conv_transposes(module: nn.Module | None) -> frozenset[str]:
                      if isinstance(m, nn.ConvTranspose2d))
 
 
+def _free_weights(module: nn.Module | None) -> frozenset[str]:
+    """The paths of `module`'s submodules whose own `weight` parameter is a
+    free one (SGE's [1,1,1,g]): of at least 2 dims, on a module that is no
+    conv or dense layer (norms' weights are 1-D; a module whose `weight` is
+    a flax kernel in another layout says so by `WEIGHT_IS_KERNEL`)."""
+    if module is None:
+        return frozenset()
+    layers = (nn.modules.conv._ConvNd, nn.Linear)
+    return frozenset(
+        name for name, m in module.named_modules()
+        if not isinstance(m, layers)
+        and not getattr(m, "WEIGHT_IS_KERNEL", False)
+        and isinstance(getattr(m, "weight", None), nn.Parameter)
+        and m.weight.ndim >= 2)
+
+
 def _to_torch_key(path: tuple, value: np.ndarray,
                   conv_transposes: frozenset[str] = frozenset()
                   ) -> tuple[str, np.ndarray]:
@@ -85,8 +111,8 @@ def _to_torch_key(path: tuple, value: np.ndarray,
                 return (".".join(mod + ["weight"]),
                         value[::-1, ::-1].transpose(2, 3, 0, 1))
             return ".".join(mod + ["weight"]), value.transpose(3, 2, 0, 1)
-        if leaf == "kernel" and value.ndim == 2:
-            return ".".join(mod + ["weight"]), value.T
+        if leaf == "kernel" and value.ndim in (2, 3):
+            return ".".join(mod + ["weight"]), value.transpose()
         if leaf == "scale":
             return ".".join(mod + ["weight"]), value
         if leaf != "kernel":  # "bias" and the free parameters
@@ -137,8 +163,10 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor],
     """torch state_dict -> nested numpy {"params": ..., "batch_stats": ...}
     in the flax layout, each array a copy (the module may train on).
     `module`, the state_dict's own, is needed where it holds a
-    ConvTranspose2d. Raises KeyError on a key it cannot map."""
+    ConvTranspose2d or a free `weight`. Raises KeyError on a key it cannot
+    map."""
     convt = _conv_transposes(module)
+    free = _free_weights(module)
     out: dict = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
@@ -148,13 +176,15 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor],
             continue
         if _IMPLICIT.fullmatch(leaf) and value.ndim == 4:
             value = value.transpose(0, 2, 3, 1)
+        elif leaf == "weight" and ".".join(mod) in free:
+            pass
         elif leaf == "weight" and value.ndim == 4:
             name = "kernel"
             value = (value.transpose(2, 3, 0, 1)[::-1, ::-1]
                      if ".".join(mod) in convt
                      else value.transpose(2, 3, 1, 0))
-        elif leaf == "weight" and value.ndim == 2:
-            name, value = "kernel", value.T
+        elif leaf == "weight" and value.ndim in (2, 3):
+            name, value = "kernel", value.transpose()
         elif leaf == "weight" and value.ndim == 1:
             name = "scale"
         elif leaf in ("running_mean", "running_var"):

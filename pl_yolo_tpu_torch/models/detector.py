@@ -1,9 +1,10 @@
 """One-stage detector assembly + registry, port of
 `pl_yolo_tpu/models/detector.py` for the YOLOX family, the anchor-based
 YOLOv7 / YOLOv5 / YOLOv3 families, the transformer backbones (Swin,
-SwinV2, ViT with its MoE FFN, ResTv2, MCTformer; `neck: none`) and the
+SwinV2, ViT with its MoE FFN, ResTv2, MCTformer; `neck: none`), the
 mobile backbones (e-YOLOX's ECMNet with the AL-PAFPN neck, CSPMobileNext,
-MobileNetV3-S/L, ShuffleNetV2).
+MobileNetV3-S/L, ShuffleNetV2) and the extra backbones (EfficientRep,
+ResNet, ConvNeXt, GhostNet, VGG, MobileNeXt).
 
 `build_model(cfg, num_classes)` composes backbone -> neck -> head from the
 YAML config sections and returns a `DetectionModel`: the torch module, its
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import math
 from typing import Any, Callable, Sequence
 
@@ -27,6 +29,7 @@ from torch import nn
 from .. import resolve_device
 from ..layers.blocks import compute_dtype
 from .backbones.cspdarknet import CSPDarkNet
+from .backbones import extras
 from .backbones.eelan import EELAN
 from .backbones.mctformer import MCTformer
 from .backbones.mobile import CSPMobileNext, ECMNet, MobileNetV3
@@ -259,6 +262,20 @@ def _mctformer(cfg: dict, dtype, input_size) -> nn.Module:
     )
 
 
+def _extras(cls):
+    # `depths` / `channels` only where the class has them (GhostNet reads
+    # neither, VGG no `depths`), `dtype` where its ConvBlocks take one
+    # (ConvNeXt computes in fp32), as the JAX package's `_extras`
+    def make(cfg: dict, dtype, input_size) -> nn.Module:
+        params = inspect.signature(cls).parameters
+        kwargs = {k: tuple(cfg[k]) for k in ("depths", "channels", "outputs")
+                  if k in cfg and k in params}
+        if "dtype" in params:
+            kwargs["dtype"] = dtype
+        return cls(**kwargs)
+    return make
+
+
 BACKBONES: dict[str, Callable[..., nn.Module]] = {
     "cspdarknet": _cspdarknet,
     "eelan": _eelan,
@@ -272,6 +289,12 @@ BACKBONES: dict[str, Callable[..., nn.Module]] = {
     "vision_transformer": _vit,
     "restv2": _restv2,
     "mctformer": _mctformer,
+    "efficientrep": _extras(extras.EfficientRep),
+    "resnet": _extras(extras.ResNet),
+    "convnext": _extras(extras.ConvNeXt),
+    "ghostnet": _extras(extras.GhostNet),
+    "vgg": _extras(extras.VGG),
+    "mobilenext": _extras(extras.MobileNeXt),
 }
 NECKS: dict[str, Callable[..., nn.Module]] = {
     "csppafpn": _csppafpn,
