@@ -32,8 +32,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import spatial, tensor
-from ..parallel.mesh import (global_batch_norm, model_layout, norm_layout,
-                             spatial_layout)
+from ..parallel.mesh import (current_layout, global_batch_norm,
+                             model_layout, norm_layout, spatial_layout,
+                             use_layout)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum = 1 - flax momentum (0.97)
@@ -421,22 +422,28 @@ class CSPLayer(nn.Module):
         return self.conv3(torch.cat([x1, x2], dim=1))
 
 
-class _FrozenStats:
-    """Context: the BatchNorms of `layer` leave their running statistics
-    alone (the recompute of a checkpointed layer, whose forward has already
-    updated them once, as flax's `nn.remat` updates them once)."""
+class _Recompute:
+    """Context of a checkpointed layer's recompute: the BatchNorms of
+    `layer` leave their running statistics alone (its forward has already
+    updated them once, as flax's `nn.remat` updates them once), and the
+    layout the forward ran under (`parallel.mesh.use_layout`) is the
+    ambient one again, whatever the backward pass runs under: a sharded
+    conv then gathers its channels and a band takes its halo rows, in the
+    order the forward took them on every rank."""
 
-    def __init__(self, layer: nn.Module):
+    def __init__(self, layer: nn.Module, layout):
         self.bns = [m for m in layer.modules() if isinstance(m, BatchNorm2d)]
+        self.layout = use_layout(layout)
 
     def __enter__(self):
+        self.layout.__enter__()
         for m in self.bns:
             m.update_stats = False
 
     def __exit__(self, *exc):
         for m in self.bns:
             m.update_stats = True
-        return False
+        return self.layout.__exit__(*exc)
 
 
 def maybe_checkpoint(layer: nn.Module, x: torch.Tensor, remat: bool
@@ -444,14 +451,16 @@ def maybe_checkpoint(layer: nn.Module, x: torch.Tensor, remat: bool
     """`layer(x)`, under `torch.utils.checkpoint` when `remat` and the layer
     trains with autograd on: the backward pass recomputes the layer's
     interior instead of keeping it (the JAX package's `maybe_remat`). The
-    recompute leaves the BatchNorm running statistics alone; the layers
-    wrapped draw no random numbers, so no RNG state is kept."""
+    recompute runs under the layout of the step that recorded it and
+    leaves the BatchNorm running statistics alone (`_Recompute`); the
+    layers wrapped draw no random numbers, so no RNG state is kept."""
     if not (remat and layer.training and torch.is_grad_enabled()):
         return layer(x)
+    layout = current_layout()
     return checkpoint(layer, x, use_reentrant=False,
                       preserve_rng_state=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          _FrozenStats(layer)))
+                                          _Recompute(layer, layout)))
 
 
 def max_pool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:

@@ -16,7 +16,9 @@ its forward with `dropout_generator`, the counterpart of the JAX step's
 Inside a data-parallel train step (`parallel.mesh.use_layout`) each rank
 draws for the global batch and keeps its own rows, and DropBlock's rescale
 takes the global batch's mask mean, as the JAX package computes both on
-the global batch.
+the global batch; on a band of rows (`parallel: {spatial}`) DropBlock
+draws the whole map's seeds, grows the blocks on the whole map and keeps
+the band's rows, as the JAX package draws and pools the whole map.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import data_layout, data_rows, data_sum
+from ..parallel.mesh import data_layout, data_rows, data_sum, spatial_layout
 
 
 def draw_drop_path(generator: torch.Generator | None, x: torch.Tensor,
@@ -54,10 +56,15 @@ def drop_block_gamma(rate: float, h: int, w: int, block_size: int) -> float:
 
 def draw_drop_block(generator: torch.Generator | None, x: torch.Tensor,
                     rate: float, block_size: int = 7) -> torch.Tensor:
-    """fp32 Bernoulli(gamma) seeds shaped like x [B,C,H,W]."""
-    gamma = drop_block_gamma(rate, x.shape[2], x.shape[3], block_size)
+    """fp32 Bernoulli(gamma) seeds shaped like x [B,C,H,W]; on a band of
+    rows (`parallel: {spatial}`), shaped like the whole map of x's rows,
+    whose H is the band's times the spatial width."""
+    sp = spatial_layout()
+    h = x.shape[2] * (1 if sp is None else sp.spatial)
+    gamma = drop_block_gamma(rate, h, x.shape[3], block_size)
     b, rows = data_rows(x.shape[0])
-    u = torch.rand((b,) + x.shape[1:], generator=generator, device=x.device)
+    u = torch.rand((b, x.shape[1], h, x.shape[3]), generator=generator,
+                   device=x.device)
     return (u[rows] < gamma).to(torch.float32)
 
 
@@ -66,7 +73,10 @@ def drop_block_2d(x: torch.Tensor, seeds: torch.Tensor, block_size: int = 7
     """DropBlock given its seeds: each seed grows into a block_size² block
     (a stride-1 max pool, `block_size // 2` padding); the kept cells are
     rescaled by the mask's mean over the whole tensor (at least 1e-6). The
-    result takes the fp32 of the mask, as the JAX version's does."""
+    result takes the fp32 of the mask, as the JAX version's does. On a
+    band of rows the seeds are the whole map's (`draw_drop_block`): the
+    blocks grow on the whole map, the mean is the whole map's, and the
+    band keeps its rows of the mask."""
     block = F.max_pool2d(seeds, block_size, stride=1,
                          padding=block_size // 2)
     mask = 1.0 - block
@@ -74,6 +84,9 @@ def drop_block_2d(x: torch.Tensor, seeds: torch.Tensor, block_size: int = 7
     mean = (mask.mean() if layout is None
             else data_sum(mask.sum()) / (mask.numel() * layout.data))
     denom = torch.clamp(mean, min=1e-6)
+    if mask.shape[2] != x.shape[2]:
+        hb = x.shape[2]
+        mask = mask.narrow(2, spatial_layout().spatial_index * hb, hb)
     return x * mask / denom
 
 

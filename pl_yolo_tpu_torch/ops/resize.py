@@ -52,10 +52,12 @@ def bicubic_weights(in_size: int, out_size: int) -> np.ndarray:
 
 def resize_bicubic(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, h, w, C] as `jax.image.resize(x, (B, h, w, C),
-    "bicubic")` in fp32: two small matmuls with the per-axis weights, so
-    the result is differentiable in x."""
+    "bicubic")`, in x's dtype (fp32 for the position tables, float64 for
+    a float64 module): two small matmuls with the per-axis weights, so the
+    result is differentiable in x."""
     wh = array_constant(bicubic_weights, x.shape[1], h, device=x.device)
     ww = array_constant(bicubic_weights, x.shape[2], w, device=x.device)
+    wh, ww = wh.to(x.dtype), ww.to(x.dtype)
     x = torch.einsum("hH,bhwc->bHwc", wh, x)
     return torch.einsum("wW,bHwc->bHWc", ww, x)
 

@@ -40,9 +40,10 @@ identity and every path is the single-process one, bit for bit.
 
 ZeRO (`parallel: {zero: true|3}`, `zero_spec`): level 1 shards the
 optimizer moments, the accumulation buffer and the EMA copy over the data
-group, level 3 the parameters too; a tensor shards along dim 0 where the
-data width divides it, and stays replicated where it does not. BatchNorm
-statistics stay replicated.
+group, level 3 the parameters too; a tensor shards along its first dim
+that the data width divides and that no model or expert slice takes, and
+stays replicated where there is none. BatchNorm statistics stay
+replicated.
 """
 
 from __future__ import annotations
@@ -124,20 +125,24 @@ class Layout:
 
 # ----------------------------------------------------------------- ZeRO
 
-def zero_spec(kind: str, shape: tuple, data_size: int, level: int
-              ) -> int | None:
+def zero_spec(kind: str, shape: tuple, data_size: int, level: int,
+              taken: int | None = None) -> int | None:
     """The dim a tensor of ZeRO state shards along over the data group, or
     None (replicated). `kind` is "opt_state" (moments, the accumulation
     buffer), "ema" (the EMA copy of params and BN statistics), "params" or
     "batch_stats". Level 1 shards "opt_state" and "ema"; level 3 also
-    "params". A tensor shards along dim 0 when the data width divides it
-    (any tensor, at a width of 1, as the JAX rule does: one shard)."""
+    "params". A tensor shards along its first dim that the data width
+    divides, other than `taken`, the dim a model or expert slice takes (any
+    tensor, at a width of 1, as the JAX rule does: one shard). The JAX
+    rule takes the first such axis of its own layout, so that the tensors
+    it shards are these, along another dim where the layouts differ."""
     roots = (("opt_state", "ema", "params") if level >= 3
              else ("opt_state", "ema"))
     if level <= 0 or kind not in roots:
         return None
-    if len(shape) >= 1 and shape[0] % data_size == 0 and shape[0] > 0:
-        return 0
+    for dim, n in enumerate(shape):
+        if dim != taken and n > 0 and n % data_size == 0:
+            return dim
     return None
 
 
@@ -164,6 +169,13 @@ class use_layout(contextlib.ContextDecorator):
     def __exit__(self, *exc):
         _LAYOUT[0] = self._prev
         return False
+
+
+def current_layout() -> Layout | None:
+    """The ambient layout (None outside a step's, or in one process), for
+    a context that must run again under it later (the recompute of a
+    checkpointed layer, `layers.blocks.maybe_checkpoint`)."""
+    return _LAYOUT[0]
 
 
 def data_layout() -> Layout | None:

@@ -73,8 +73,10 @@ def ep_spec(name: str, shape: tuple, expert: int) -> int | None:
 def shard_specs(module: nn.Module, layout) -> dict[str, Shard]:
     """{parameter name: its Shard} for the parameters of `module` that the
     layout's model and expert widths shard (the expert rule first, as
-    `state_specs` applies it). A grouped conv under a model width above 1
-    raises: its cout slice would need its input's channel slice too."""
+    `state_specs` applies it). A grouped conv (`depthwise: true`) shards
+    where the model width divides its groups, so that a cout slice holds
+    whole groups; where it does not, it raises instead of replicating a
+    tensor that the JAX spec shards."""
     convs = {id(m.weight): m for m in module.modules()
              if isinstance(m, nn.Conv2d)}
     specs = {}
@@ -91,12 +93,13 @@ def shard_specs(module: nn.Module, layout) -> dict[str, Shard]:
                     "not a conv kernel; tensor parallelism shards the convs "
                     "of CSPDarknet, CSPPAFPN and DecoupledHead (ROADMAP "
                     "queue A, item 12c)")
-            if conv.groups > 1:
+            if conv.groups > 1 and conv.groups % layout.model:
                 raise NotImplementedError(
-                    f"parallel.model={layout.model}: {name} is a grouped "
-                    f"conv (groups={conv.groups}, `depthwise: true`), which "
-                    "tensor parallelism does not shard yet (ROADMAP queue "
-                    "A, item 12c)")
+                    f"parallel.model={layout.model}: {name} is a conv of "
+                    f"{conv.groups} groups, which the model width does not "
+                    "divide; a cout slice would cut a group, and the JAX "
+                    "spec shards it all the same (ROADMAP queue A, item "
+                    "12c)")
             specs[name] = Shard(0, layout.model_group,
                                 layout.model_index, layout.model)
     return specs
@@ -127,13 +130,21 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
            stride, padding, dilation, groups: int, layout) -> torch.Tensor:
     """The conv of the replicated input x with a weight whose cout is
     sharded over the layout's model group: copy in, the local conv on the
-    slice, the channels gathered, then the bias."""
+    slice, the channels gathered, then the bias. A conv of `groups` groups
+    holds groups / M whole groups a rank (`shard_specs`), whose input
+    channels are this rank's channel slice of x: the local conv reads
+    those, in groups / M groups (its input gradient is zero elsewhere, and
+    the copy's all-reduce makes it whole)."""
     if layout is None:
         raise RuntimeError(
             "a conv whose cout is sharded over the model group runs only "
             "inside a train step's layout (parallel.mesh.use_layout); "
             "gather the module first (DataParallel.eval_module)")
     x = collectives.copy_to_group(x, layout.model_group)
+    if groups > 1:
+        n = x.shape[1] // layout.model
+        x = x.narrow(1, layout.model_index * n, n)
+        groups //= layout.model
     y = F.conv2d(x, weight, None, stride, padding, dilation, groups)
     y = collectives.gather_along(y, 1, layout.model_group)
     return y if bias is None else y + bias.reshape(1, -1, 1, 1)

@@ -33,18 +33,25 @@ sums plus the replicated tensors' own.
 Under a model or expert width above 1 (`parallel.tensor`) the engine cuts
 the module's sharded convs and experts to this rank's slices when it is
 built; the optimizer, its moments and the EMA copy then hold slices. A
-ZeRO shard and a model or expert slice are one kind of part here (a
-`tensor.Shard`: a dim, a group, this rank's index, the group's width), so
-that the EMA, the gathers, the byte counts and the state_dict moves take
-one path; they differ only in what the module holds: the whole tensor
-under ZeRO, its slice under tensor and expert parallelism. Each gradient
-is summed over the ranks that hold the same tensor and saw other rows or
-bands: the norm group (data x spatial), for the replicated tensors (the
-model and expert ranks already hold their whole gradient) and the slices
-alike. The clip's global norm counts each
-slice's squares once. `eval_module()`, the checkpoint's state_dicts and
-their loads gather to, or cut from, the one-process format. ZeRO with
-these axes is not ported (ROADMAP queue A, item 12c).
+ZeRO shard and a model or expert slice are both parts here (a
+`tensor.Shard`: a dim, a group, this rank's index, the group's width),
+and a tensor may hold both: under ZeRO with these axes its model (or
+expert) slice is cut first, and ZeRO then shards the slice over the data
+group along another dim (`zero_spec`'s `taken`), as the JAX rule shards a
+leaf over 'data' on an axis the 'model' or 'expert' spec leaves free. The
+module holds the slice (at level 3 gathered over the data group before
+each forward); the optimizer and the EMA hold the slice's data part. The
+EMA, the gathers, the byte counts and the state_dict moves take one path
+for every kind of part. Each gradient is summed over the ranks that hold
+the same tensor and saw other rows or bands: the norm group (data x
+spatial), for the replicated tensors (the model and expert ranks already
+hold their whole gradient) and the slices alike; a ZeRO part's gradient is
+reduce-scattered over the data group and then summed over the spatial
+group. The clip's global norm counts each part once: its squares summed
+over its groups (data, and model or expert), never over the spatial
+replicas. `eval_module()`, the checkpoint's state_dicts and their loads
+gather both levels to, or cut them from, the one-process format. ZeRO with
+a pipe width above 1 is not ported (ROADMAP queue A, item 12c).
 """
 
 from __future__ import annotations
@@ -62,17 +69,34 @@ from .mesh import Layout, zero_spec
 
 @dataclasses.dataclass
 class _Entry:
-    """One tensor of the module (`name`) and the part of it this rank
-    holds: `shard` says how the one-process tensor splits (None: whole,
-    replicated). Under ZeRO the module keeps the whole tensor (at level 3
-    gathered before each forward) and the part is a slice of it; under
-    tensor or expert parallelism (`sliced`) the module's tensor is the
-    part."""
+    """One tensor of the module (`name`) and the parts of it this rank
+    holds. `tp`: the model or expert slice (tensor or expert parallelism),
+    which the module's tensor is. `zero`: this rank's ZeRO part of the
+    module's tensor (of its slice, where there is one) over the data
+    group; the module keeps that tensor whole (at level 3 gathered before
+    each forward). `own`: a part with storage of its own (the level-3
+    master shard of a parameter, the EMA copy's part)."""
     name: str
     tensor: torch.Tensor          # the module's parameter or buffer
-    shard: tensor.Shard | None = None
-    sliced: bool = False
-    own: torch.Tensor | None = None     # a part with storage of its own
+    tp: tensor.Shard | None = None
+    zero: tensor.Shard | None = None
+    own: torch.Tensor | None = None
+
+    @property
+    def parts(self) -> list[tensor.Shard]:
+        """The cuts from the one-process tensor to this rank's, in order."""
+        return [s for s in (self.tp, self.zero) if s is not None]
+
+    @property
+    def width(self) -> int:
+        """How many such parts one process's tensor holds."""
+        return math.prod(s.width for s in self.parts)
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the one-process tensor `full` (a view)."""
+        for s in self.parts:
+            full = s.narrow(full)
+        return full
 
 
 def _release(t: torch.Tensor) -> None:
@@ -81,6 +105,43 @@ def _release(t: torch.Tensor) -> None:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _buckets(shards: list) -> list[list[int]]:
+    """The indices of the shards (None skipped) of one group and dim, a
+    list each, in the order of their first shard: one flat collective
+    each."""
+    buckets: dict = {}
+    for i, s in enumerate(shards):
+        if s is not None:
+            buckets.setdefault((id(s.group), s.dim), []).append(i)
+    return list(buckets.values())
+
+
+def _gather(parts: list, shards: list) -> list:
+    """Each part gathered into the whole along its shard's dim over its
+    shard's group (as it is where the shard is None; a collective call)."""
+    out = list(parts)
+    for idx in _buckets(shards):
+        s = shards[idx[0]]
+        fulls = collectives.all_gather_many(
+            [parts[i].detach().movedim(s.dim, 0) for i in idx], s.group)
+        for i, full in zip(idx, fulls):
+            out[i] = full.movedim(0, s.dim).contiguous()
+    return out
+
+
+def _scatter(tensors: list, shards: list) -> list:
+    """Each tensor summed over its shard's group, this rank's part of the
+    sum kept (a collective call)."""
+    out = [None] * len(tensors)
+    for idx in _buckets(shards):
+        s = shards[idx[0]]
+        parts = collectives.reduce_scatter_many(
+            [tensors[i].movedim(s.dim, 0) for i in idx], s.group)
+        for i, part in zip(idx, parts):
+            out[i] = part.movedim(0, s.dim).contiguous()
+    return out
 
 
 class DataParallel:
@@ -94,13 +155,10 @@ class DataParallel:
 
     def __init__(self, module: nn.Module, layout: Layout, zero: int = 0,
                  use_ema: bool = True):
-        wide = {a: getattr(layout, a) for a in ("model", "spatial", "expert")
-                if getattr(layout, a) > 1}
-        if zero and (layout.pipe > 1 or wide):
+        if zero and layout.pipe > 1:
             raise NotImplementedError(
-                f"ZeRO (level {zero}) with pipeline={layout.pipe} and "
-                f"{wide or 'no other axis'} is not ported yet (ROADMAP queue "
-                "A, item 12c)")
+                f"ZeRO (level {zero}) with pipeline={layout.pipe} is not "
+                "ported yet (ROADMAP queue A, item 12c)")
         self.module, self.layout, self.zero = module, layout, int(zero)
         self.group, self.size = layout.data_group, layout.data
         self.rank = layout.data_index
@@ -136,25 +194,26 @@ class DataParallel:
                     e.own = self._part(e).detach().clone()
         if self.zero >= 3:
             for e in self.params:
-                if e.shard is not None:
+                if e.zero is not None:
                     e.own = self._part(e).detach().clone()
                     _release(e.tensor)
 
     def _entry(self, name: str, t: torch.Tensor, kind: str) -> _Entry:
-        if name in self.specs:
-            return _Entry(name, t, self.specs[name], sliced=True)
-        dim = (zero_spec(kind, tuple(t.shape), self.size, self.zero)
+        """The entry of the module's tensor t: its slice (the module holds
+        it) and the ZeRO part of that slice, as `zero_spec` shards a `kind`
+        of state."""
+        tp = self.specs.get(name)
+        dim = (zero_spec(kind, tuple(t.shape), self.size, self.zero,
+                         None if tp is None else tp.dim)
                if t.is_floating_point() else None)
-        if dim is None:
-            return _Entry(name, t)
-        return _Entry(name, t, tensor.Shard(dim, self.group, self.rank,
-                                            self.size))
+        return _Entry(name, t, tp, None if dim is None else tensor.Shard(
+            dim, self.group, self.rank, self.size))
 
     @staticmethod
     def _part(e: _Entry) -> torch.Tensor:
-        """This rank's part of the module's tensor (a view)."""
+        """This rank's ZeRO part of the module's tensor (a view)."""
         t = e.tensor.data
-        return t if e.shard is None or e.sliced else e.shard.narrow(t)
+        return t if e.zero is None else e.zero.narrow(t)
 
     def _template_tensors(self) -> list[torch.Tensor]:
         return [*self.template.parameters(), *self.template.buffers()]
@@ -172,16 +231,16 @@ class DataParallel:
 
     def optimizer_views(self) -> dict:
         """`build_optimizer`'s keywords: the tensor the optimizer holds for
-        each parameter (its part under ZeRO: a view into the parameter at
-        level 1, the master shard at level 3; the parameter itself, a
-        slice, under tensor or expert parallelism) and the gradient's
-        global norm for the clip. Plain data parallelism needs neither."""
+        each parameter (its ZeRO part: a view into the parameter at level
+        1, the master shard at level 3; else the parameter itself, a slice
+        under tensor or expert parallelism) and the gradient's global norm
+        for the clip. Plain data parallelism needs neither."""
         if not self.sliced:
             return {}
 
         def view(p):
             e = self._by_id[id(p)]
-            held = p if e.shard is None or e.sliced else (
+            held = p if e.zero is None else (
                 e.own if e.own is not None else self._part(e))
             self._held[id(p)] = held
             return held
@@ -197,23 +256,25 @@ class DataParallel:
     def _part_sums(self, value) -> torch.Tensor:
         """The sum over the parameters of `value(gradient)` (a float64
         scalar), each part counted once: the parts' sums all-reduced over
-        their group (ZeRO's data group, or the model or expert group)."""
+        each of their groups in turn (ZeRO's data group, the model or
+        expert group), the spatial replicas' never."""
         whole = torch.zeros((), dtype=torch.float64, device=self._device())
-        parts: dict = {}   # id(group) -> [group, the parts' sum]
-        if self.zero:
-            parts[id(self.group)] = [self.group, torch.zeros_like(whole)]
+        parts: dict = {}   # the parts' groups' ids -> [groups, their sum]
         for e in self.params:
             g = self.held(e).grad
             if g is None:
                 continue
-            if e.shard is None:
+            if not e.parts:
                 whole = whole + value(g).double()
             else:
-                acc = parts.setdefault(id(e.shard.group), [
-                    e.shard.group, torch.zeros_like(whole)])
+                groups = [s.group for s in e.parts]
+                acc = parts.setdefault(tuple(map(id, groups)), [
+                    groups, torch.zeros_like(whole)])
                 acc[1] = acc[1] + value(g).double()
-        for group, v in parts.values():
-            whole = whole + collectives.all_reduce_(v, group)
+        for groups, v in parts.values():
+            for group in groups:
+                v = collectives.all_reduce_(v, group)
+            whole = whole + v
         return whole
 
     def grad_norm(self) -> torch.Tensor:
@@ -242,23 +303,25 @@ class DataParallel:
         self.gather_params()
 
     def gather_params(self) -> None:
-        """Level 3: all-gather each sharded parameter into the module (a
-        collective call), until `release_params` or the next backward."""
+        """Level 3: all-gather each ZeRO-sharded parameter into the module
+        (its slice, under tensor or expert parallelism; a collective call),
+        until `release_params` or the next backward."""
         if self.zero < 3:
             return
-        sharded = [e for e in self.params if e.shard is not None]
-        for e, full in zip(sharded, collectives.all_gather_many(
-                [e.own for e in sharded], self.group)):
+        sharded = [e for e in self.params if e.zero is not None]
+        for e, full in zip(sharded, _gather([e.own for e in sharded],
+                                            [e.zero for e in sharded])):
             e.tensor.data = full
 
     def reduce_grads(self) -> None:
         """Sum the gradients over the norm group (data x spatial; over the
         world, divided by the pipe width, under GPipe), each dtype in one
-        flat call: under ZeRO each sharded gradient is reduce-scattered
-        into the shard the optimizer holds (at level 3 the whole parameter
-        is released), the others are all-reduced. A model or expert slice's
-        gradient is whole for its slice on its rank, as a replicated
-        tensor's is."""
+        flat call: under ZeRO each sharded gradient is reduce-scattered over
+        the data group into the part the optimizer holds and that part
+        summed over the spatial group (at level 3 the whole parameter is
+        released), the others are all-reduced over the norm group. A model
+        or expert slice's gradient is whole for its slice on its rank, as a
+        replicated tensor's is."""
         layout = self.layout
         for e in self.params:
             if e.tensor.grad is None:
@@ -268,29 +331,30 @@ class DataParallel:
             collectives.all_reduce_many_(grads, layout.world_group)
             torch._foreach_div_(grads, float(layout.pipe))
             return
-        scattered = [e for e in self.params
-                     if e.shard is not None and not e.sliced]
+        scattered = [e for e in self.params if e.zero is not None]
         if scattered:
-            shards = collectives.reduce_scatter_many(
-                [e.tensor.grad for e in scattered], self.group)
-            for e, g in zip(scattered, shards):
+            parts = _scatter([e.tensor.grad for e in scattered],
+                             [e.zero for e in scattered])
+            if layout.spatial > 1:
+                collectives.all_reduce_many_(parts, layout.spatial_group)
+            for e, g in zip(scattered, parts):
                 self.held(e).grad = g
                 e.tensor.grad = None
                 if self.zero >= 3:
                     _release(e.tensor)
         collectives.all_reduce_many_(
-            [e.tensor.grad for e in self.params
-             if e.shard is None or e.sliced], layout.norm_group)
+            [e.tensor.grad for e in self.params if e.zero is None],
+            layout.norm_group)
 
     def after_update(self) -> None:
-        """Level 1: all-gather the updated shards into the module's
-        parameters, in one flat call (after an update, not after an
+        """Level 1: all-gather the updated parts into the module's
+        parameters, in one flat call a dim (after an update, not after an
         accumulating micro-step)."""
         if self.zero != 1 or getattr(self.optimizer, "mini_step", 0):
             return
-        sharded = [e for e in self.params if e.shard is not None]
-        fulls = collectives.all_gather_many(
-            [self._part(e).clone() for e in sharded], self.group)
+        sharded = [e for e in self.params if e.zero is not None]
+        fulls = _gather([self._part(e) for e in sharded],
+                        [e.zero for e in sharded])
         for e, full in zip(sharded, fulls):
             e.tensor.data.copy_(full)
 
@@ -325,23 +389,14 @@ class DataParallel:
     # ------------------------------------------------------ gathers, parts
 
     @staticmethod
-    def _whole(entries: list, parts: list) -> list:
-        """Each entry's one-process tensor from this rank's part of it: the
-        parts of one group and dim in one flat all-gather (a collective
-        call); the replicated ones as they are."""
-        out = list(parts)
-        buckets: dict = {}
-        for i, e in enumerate(entries):
-            if e.shard is not None:
-                buckets.setdefault((id(e.shard.group), e.shard.dim),
-                                   []).append(i)
-        for idx in buckets.values():
-            s = entries[idx[0]].shard
-            fulls = collectives.all_gather_many(
-                [parts[i].detach().movedim(s.dim, 0) for i in idx], s.group)
-            for i, full in zip(idx, fulls):
-                out[i] = full.movedim(0, s.dim).contiguous()
-        return out
+    def _whole(entries: list, parts: list, zero: bool = True) -> list:
+        """Each entry's one-process tensor from this rank's part of it
+        (with `zero` false: from the module's tensor, the slice): the ZeRO
+        parts gathered into the slices, then the slices into the whole (a
+        collective call); the replicated ones as they are."""
+        if zero:
+            parts = _gather(parts, [e.zero for e in entries])
+        return _gather(parts, [e.tp for e in entries])
 
     def eval_module(self) -> nn.Module:
         """The EMA copy (or, without one, the module) gathered into a whole
@@ -365,7 +420,7 @@ class DataParallel:
     def release_params(self) -> None:
         if self.zero >= 3:
             for e in self.params:
-                if e.shard is not None:
+                if e.zero is not None:
                     _release(e.tensor)
 
     def module_state_dict(self) -> dict:
@@ -375,9 +430,9 @@ class DataParallel:
         sd = {k: v.detach().clone()
               for k, v in self.module.state_dict().items()}
         self.release_params()
-        sliced = [e for e in self.params if e.sliced]
+        sliced = [e for e in self.params if e.tp is not None]
         for e, whole in zip(sliced, self._whole(
-                sliced, [sd[e.name] for e in sliced])):
+                sliced, [sd[e.name] for e in sliced], zero=False)):
             sd[e.name] = whole
         return sd
 
@@ -386,7 +441,7 @@ class DataParallel:
         self.module.load_state_dict(tensor.shard_state_dict(sd, self.specs))
         if self.zero >= 3:
             for e in self.params:
-                if e.shard is not None:
+                if e.zero is not None:
                     e.own.copy_(self._part(e))
         self.release_params()
 
@@ -399,8 +454,7 @@ class DataParallel:
         for e in self.ema_entries:
             if e.name not in sd:
                 continue  # a non-persistent scratch buffer
-            full = sd[e.name].to(e.own.device, e.own.dtype)
-            e.own.copy_(full if e.shard is None else e.shard.narrow(full))
+            e.own.copy_(e.cut(sd[e.name].to(e.own.device, e.own.dtype)))
         self._eval_ready = False
 
     def _opt_entries(self) -> list[_Entry]:
@@ -436,20 +490,17 @@ class DataParallel:
                 st = sd["state"].get(i)
                 if st is None:
                     continue
-
-                def part(v, e=e):
-                    if (e.shard is None or not isinstance(v, torch.Tensor)
-                            or v.ndim < 1):
-                        return v
-                    return e.shard.narrow(v).clone()
-                state[i] = {k: part(v) for k, v in st.items()}
+                state[i] = {k: (e.cut(v).clone()
+                                if isinstance(v, torch.Tensor) and v.ndim
+                                else v) for k, v in st.items()}
             sd = {"state": state, "param_groups": sd["param_groups"]}
         self.optimizer.load_state_dict(sd)
 
     def state_bytes(self) -> dict:
         """This rank's bytes of optimizer state, EMA copy and parameters
         (the parts where it holds parts), and one process's: a part counts
-        its group's width times for one process."""
+        as many times for one process as one process's tensor holds such
+        parts."""
         out = dict.fromkeys(("opt_state", "ema", "params"), 0)
         out.update(dict.fromkeys(("opt_state_one_process", "ema_one_process",
                                   "params_one_process"), 0))
@@ -458,15 +509,15 @@ class DataParallel:
             out[kind] += _nbytes(t)
             out[kind + "_one_process"] += _nbytes(t) * width
         for e in self.params:
-            width = 1 if e.shard is None else e.shard.width
-            # the module's parameter: whole under ZeRO-1, a part at level 3
-            # (its master shard) and under tensor or expert parallelism
-            held = e.own if e.own is not None else e.tensor
-            add("params", held, width if e.own is not None or e.sliced
-                else 1)
+            # the module's parameter: its slice (or the whole) under ZeRO-1,
+            # its master part at level 3
+            if e.own is not None:
+                add("params", e.own, e.width)
+            else:
+                add("params", e.tensor, 1 if e.tp is None else e.tp.width)
             for t in self.optimizer.state.get(self.held(e), {}).values():
                 if isinstance(t, torch.Tensor) and t.ndim >= 1:
-                    add("opt_state", t, width)
+                    add("opt_state", t, e.width)
         for e in self.ema_entries or []:
-            add("ema", e.own, 1 if e.shard is None else e.shard.width)
+            add("ema", e.own, e.width)
         return out

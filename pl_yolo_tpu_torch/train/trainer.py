@@ -67,8 +67,10 @@ TP_SP_FAMILIES = {"backbone": "cspdarknet", "neck": "csppafpn",
 
 def check_ported(model_cfg: dict, data_cfg: dict) -> None:
     """Raise on config keys whose machinery the port does not have yet:
-    combinations of the parallel axes that no shipped YAML uses, which the
-    JAX package takes through GSPMD (ROADMAP queue A, item 12c)."""
+    combinations of the parallel axes that the JAX package takes through
+    GSPMD (ROADMAP queue A, item 12c): tensor and spatial parallelism
+    outside CSPDarknet, CSPPAFPN and DecoupledHead, and a pipe width with
+    a model, spatial or expert width."""
     par = model_cfg.get("parallel", {}) or {}
     if par.get("zero") not in (None, False, True, 0, 1, 3):
         raise ValueError(f"parallel.zero={par['zero']!r}: take true or 3")
@@ -79,8 +81,6 @@ def check_ported(model_cfg: dict, data_cfg: dict) -> None:
         raise NotImplementedError(
             f"parallel: {par}: {what} is not ported yet (ROADMAP queue A, "
             "item 12c)")
-    if wide and par.get("zero"):
-        refuse(f"`zero` with {wide}")
     if wide and int(par.get("pipeline", 1)) > 1:
         refuse(f"`pipeline` with {wide}")
     tp_sp = {k: v for k, v in wide.items() if k in ("model", "spatial")}
@@ -91,15 +91,6 @@ def check_ported(model_cfg: dict, data_cfg: dict) -> None:
                 refuse(f"{tp_sp} on {part} {got!r} (tensor and spatial "
                        "parallelism cover CSPDarknet, CSPPAFPN and "
                        "DecoupledHead)")
-        if model_cfg.get("remat"):
-            refuse(f"`remat: true` with {tp_sp}")
-    if "model" in wide and any((model_cfg.get(part) or {}).get("depthwise")
-                               for part in TP_SP_FAMILIES):
-        refuse("grouped convs (`depthwise: true`) under parallel.model")
-    if "spatial" in wide:
-        if ((model_cfg.get("backbone") or {}).get("drop_block") or {}).get(
-                "rate", 0.0):
-            refuse("DropBlock on bands of rows (parallel.spatial)")
     t_cfg = data_cfg.get("transform", {}) or {}
     check_config(AugmentConfig.from_dict(t_cfg))  # use_pallas
 

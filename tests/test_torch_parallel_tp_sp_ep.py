@@ -1,44 +1,53 @@
 """Tensor, spatial and expert parallelism (`pl_yolo_tpu_torch/parallel/`:
-cout-sharded convs, bands of rows with halo exchanges, sharded MoE experts)
-and the MoE FFN of the global batch under data parallelism, on the CPU over
-gloo, at narrow widths and 64 px.
+cout-sharded convs, bands of rows with halo exchanges, sharded MoE experts),
+their combinations with ZeRO, remat, DropBlock and depthwise convs, and the
+MoE FFN of the global batch under data parallelism, on the CPU over gloo,
+at narrow widths and 64 px.
 
 One 4-process spawn (`python tests/test_torch_parallel_tp_sp_ep.py ranks
 RANK 4 PORT OUT COCO`) runs every multi-rank case in turn: model 2 x
 spatial 2 (the narrow `yolox_s_tp2sp2.yaml`, its train steps and
 `Trainer.fit`), data 2 x spatial 2 and data 2 x model 2 (each axis alone
 beside the data axis), data 2 x expert 2 (the tiny MoE ViT of
-`tests/test_parallel_ep.py`, whose experts overflow), the MoE FFN on the
-data 2 ranks, and the halo exchange on spatial 2 and spatial 4. A fifth
-child (`jax`) runs the JAX package's steps on `make_mesh(model=2,
-spatial=2)` and `make_mesh(data=2, expert=2)` of the conftest's virtual
-devices, its `state_specs`, and its `moe_ffn` of the global batch. This
-process meanwhile computes the one-process references and fits one
-process. The parametrised tests below assert on the children's files.
+`tests/test_parallel_ep.py`, whose experts overflow); the combinations of
+`F64_LAYOUTS`: ZeRO-3 (accumulate 2, clip) over data 2 x model 2, ZeRO-1
+over data 2 x spatial 2 and over data 2 x expert 2, remat and DropBlock
+over model 2 x spatial 2, depthwise convs over data 2 x model 2, with a
+state-dict round trip of the ZeRO-3 engine; the MoE FFN on the data 2
+ranks, and the halo exchange on spatial 2 and spatial 4. A fifth child
+(`jax`) runs the JAX package's steps on `make_mesh(model=2, spatial=2)`
+and `make_mesh(data=2, expert=2)` of the conftest's virtual devices, its
+`state_specs`, and its `moe_ffn` of the global batch. This process
+meanwhile computes the one-process references, fits one process, and
+runs the JAX steps on `make_mesh(data=2, model=2)` (ZeRO-3, the depthwise
+YOLOX). The parametrised tests below assert on the children's files.
 
 Tolerances:
-  * float64, the ranks against one process on the global batch (two
-    augmented steps of the narrow YOLOX): 1e-9 of each tensor's change,
-    and of each loss, and of the scale of the eval predictions through
-    the gathered EMA. The same function; only the order of the sums
-    differs (BatchNorm's statistics over the norm group, the gradients
-    summed, the conv's input gradient summed over the model group);
-  * fp32, two steps of the 4 ranks against the JAX package's 1x2x2 mesh
-    step: the bounds of `tests/test_parallel_sp.py`, each loss at rtol
-    2e-4 and each parameter at rtol 2e-3 / atol 2e-5; and each
-    parameter's change at SLICE_TOL (5e-3) of the JAX step's change
-    (worst seen 1.8e-3);
-  * the tiny MoE ViT in fp32 (its position table is resized in fp32):
-    against one process, each loss at 1e-5 relative and each parameter's
-    change at 1e-3 of the change; against the JAX package's data 2 x
-    expert 2 step, the loss at 1e-3 relative (`tests/test_parallel_ep.py`)
-    and each parameter's change at 5e-3 of the change (the state bound of
+  * float64, the ranks against one process's run of the same config on
+    the global batch (two augmented steps of each layout): 1e-9 of each
+    tensor's change, and of each loss and of the clip's global norm, and
+    of the scale of the eval predictions through the gathered EMA. The
+    same function; only the order of the sums differs (BatchNorm's
+    statistics over the norm group, the gradients summed, the conv's
+    input gradient summed over the model group). The MoE router, whose
+    logits are fp32 in both packages, to ROUTER_TOL (1e-6);
+  * fp32, two steps of the 4 ranks against the JAX package's mesh steps
+    (1x2x2; 2x2 with ZeRO-3; 2x2 with the depthwise YOLOX): the bounds of
+    `tests/test_parallel_sp.py`, each loss at rtol 2e-4 and each
+    parameter at rtol 2e-3 / atol 2e-5; and each parameter's change at
+    SLICE_TOL (5e-3) of the JAX step's change (worst seen 1.8e-3);
+  * the tiny MoE ViT in fp32 (un-augmented): against one process, each
+    loss at 1e-5 relative and each parameter's change at 1e-3 of the
+    change; against the JAX package's data 2 x expert 2 step, the loss at
+    1e-3 relative (`tests/test_parallel_ep.py`) and each parameter's
+    change at 5e-3 of the change (the state bound of
     `tests/test_torch_train.py`);
   * the halo exchange and the MoE FFN, float64: 1e-12 of the scale (the
     same sums on rows fetched from other ranks);
   * the trainer, fp32: the 4-rank fit's checkpoint against the
     one-process fit's, each tensor to 5e-3 of its change; the resumed 4
-    ranks gather the checkpoint back bit for bit.
+    ranks gather the checkpoint back bit for bit; the ZeRO-3 engine's
+    state dicts likewise.
 
 A tensor whose change is below 1e-3 of the largest change of its tree is
 held to that floor instead.
@@ -87,10 +96,44 @@ NUM_CLASSES, SIZE, BATCH, STEPS, BASE_LR = 3, 64, 4, 2, 5e-4
 F64_TOL, HALO_TOL, FP32_RATIO_TOL = 1e-9, 1e-12, 1e-6
 SP_LOSS_RTOL, SP_PARAM_RTOL, SP_PARAM_ATOL = 2e-4, 2e-3, 2e-5
 MOE_LOSS_TOL, MOE_TOL, JAX_MOE_LOSS_TOL, SLICE_TOL = 1e-5, 1e-3, 1e-3, 5e-3
-# the float64 layouts, (data, Layout keywords), against one process
-F64_LAYOUTS = {"model2_spatial2": (1, {"model": 2, "spatial": 2}),
-               "data2_spatial2": (2, {"spatial": 2}),
-               "data2_model2": (2, {"model": 2})}
+# the MoE router's logits are fp32 in a float64 module, as in the JAX
+# package (`moe_ffn`): its gradient is an fp32 sum over each rank's tokens
+# (3.6e-8 of its change from one process's seen), every other tensor
+# float64 (1e-11)
+ROUTER, ROUTER_TOL = "blocks_moe_router", 1e-6
+# yolox_s_zero.yaml's clip, which binds on the narrow YOLOX's gradients
+# (a global norm of 130-190 in its first steps)
+CLIP = 35.0
+# the configs of the runs: the narrow yolox_s_tp2sp2 (`_yolox_cfg`) with
+# these changes, and the tiny MoE ViT (`_moe_cfg`)
+VARIANTS = {
+    "base": {},
+    "zero3_accumulate": {"optimizer": {"accumulate_steps": 2,
+                                       "clip_grad_norm": CLIP}},
+    "zero3_clip": {"optimizer": {"clip_grad_norm": CLIP}},
+    "remat_dropblock": {"remat": True,
+                        "backbone": {"drop_block": {"rate": 0.1,
+                                                    "size": 7}}},
+    "depthwise": {part: {"depthwise": True}
+                  for part in ("backbone", "neck", "head")},
+    "moe": None,
+}
+# the float64 layouts, (data, Layout keywords, ZeRO level, variant),
+# against one process's run of the variant
+F64_LAYOUTS = {
+    "model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "base"),
+    "data2_spatial2": (2, {"spatial": 2}, 0, "base"),
+    "data2_model2": (2, {"model": 2}, 0, "base"),
+    "data2_model2_zero3": (2, {"model": 2}, 3, "zero3_accumulate"),
+    "data2_spatial2_zero1": (2, {"spatial": 2}, 1, "base"),
+    "data2_expert2_zero1": (2, {"expert": 2}, 1, "moe"),
+    "model2_spatial2_remat_dropblock": (1, {"model": 2, "spatial": 2}, 0,
+                                        "remat_dropblock"),
+    "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise")}
+# the fp32 layouts held to the JAX package's mesh steps, un-augmented
+JAX_LAYOUTS = {"model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "base"),
+               "data2_model2_zero3": (2, {"model": 2}, 3, "zero3_clip"),
+               "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise")}
 # the halo cases: (op, ksize, stride) of the YOLOX path x (spatial width,
 # rows a band); the 13-pool on one-row bands reaches past the next band
 HALO_OPS = {"conv3": (3, 1), "conv3_s2": (3, 2), "pool5": (5, 1),
@@ -130,6 +173,19 @@ def _moe_cfg():
             "optimizer": {"name": "sgd", "learning_rate": BASE_LR,
                           "momentum": 0.9, "weight_decay": 0.0005,
                           "warmup": 0.1}}
+
+
+def _cfg(variant):
+    """The model config of a variant (`VARIANTS`)."""
+    if variant == "moe":
+        return _moe_cfg()
+    cfg = _yolox_cfg()
+    for key, value in VARIANTS[variant].items():
+        if isinstance(value, dict):
+            cfg[key] = {**cfg.get(key, {}), **value}
+        else:
+            cfg[key] = value
+    return cfg
 
 
 def _batch(seed=0, dtype=np.uint8):
@@ -194,37 +250,54 @@ def _halo_run(name, x, w, out_weight, rows=None):
 
 # -------------------------------------------------------------- the runs
 
-def _yolox_run(layout, rows, dtype=torch.float64, augment=True):
-    """Two train steps of the narrow YOLOX on rows `rows` of the global
-    batch (augmented: the s2d augmentation, as the trainer feeds a Focus
-    stem), under `layout` through the engine, else in one process; the
-    state gathered as one process keeps it, and the eval predictions of
-    the global batch through the state's `eval_module` (under the layout
-    the EMA gathered from the ranks' parts)."""
-    cfg = _yolox_cfg()
+def _run(variant, layout, rows, dtype=torch.float64, augment=True, zero=0,
+         roundtrip=False):
+    """Two train steps of a variant (`VARIANTS`: the narrow YOLOX, or the
+    tiny MoE ViT) on rows `rows` of the global batch (augmented: the s2d
+    augmentation for a Focus stem, as the trainer feeds it, else the NHWC
+    one), under `layout` through the engine at ZeRO level `zero`, else in
+    one process; the state gathered as one process keeps it, the clip's
+    global norm at each update, and the eval predictions of the global
+    batch through the state's `eval_module` (under the layout the EMA
+    gathered from the ranks' parts). With `roundtrip`, the gathered
+    state loaded into a new engine and gathered back."""
+    cfg = _cfg(variant)
+    cfg["dtype"] = None
     model = build_model(cfg, NUM_CLASSES, device="cpu",
                         input_size=(SIZE, SIZE))
     model.module.to(dtype)
     init = {k: v.clone() for k, v in model.module.state_dict().items()}
-    engine = (DataParallel(model.module, layout) if layout is not None
-              else None)
-    optimizer, _ = build_optimizer(
-        model.module, cfg["optimizer"], 10,
-        **(engine.optimizer_views() if engine is not None else {}))
+    engine = (DataParallel(model.module, layout, zero=zero)
+              if layout is not None else None)
+    views = engine.optimizer_views() if engine is not None else {}
+    norm = views.get("global_norm") or (lambda: torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(p.grad.to(
+            torch.promote_types(p.dtype, torch.float32)))
+            for p in model.module.parameters() if p.grad is not None])))
+    norms = []
+
+    def recorded():
+        n = norm()
+        norms.append(float(n))
+        return n
+    views["global_norm"] = recorded
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"], 10,
+                                   **views)
     state = TrainState.create(model.module, optimizer, parallel=engine)
+    s2d = getattr(type(model.module.backbone), "STEM_S2D", False)
 
     def apply(module, x):
-        if not augment:
+        if not (augment and s2d):
             return module(x.to(dtype))
         with stem_input_s2d():
             return module(x.to(dtype))
     step = make_train_step(
         model.loss.train_loss,
         augment_fn=(make_augment_fn(AugmentConfig(
-            max_labels=20, pixel_dtype="float32"), out_s2d=True)
+            max_labels=20, pixel_dtype="float32"), out_s2d=s2d)
             if augment else None), apply_fn=apply)
     generator = torch.Generator().manual_seed(1)
-    images, labels = _batch(0)
+    images, labels = _batch(5 if variant == "moe" else 0)
     if not augment:
         images = images.float()
     losses = [{k: float(v) for k, v in step(
@@ -233,45 +306,59 @@ def _yolox_run(layout, rows, dtype=torch.float64, augment=True):
     preds = make_eval_step(model.loss.eval_decode)(state.eval_module,
                                                    images.to(dtype))
     if engine is not None:
+        order = [e.name for e in engine._opt_entries()]
         # (the EMA as validation takes it: gathered from the ranks' parts
         # where they hold parts, the EMA copy itself where they do not)
         out = {"params": engine.module_state_dict(),
                "ema": state.eval_module.state_dict(),
                "optimizer": engine.optimizer_state_dict(),
-               "bytes": engine.state_bytes(), "specs": sorted(engine.specs)}
+               "bytes": engine.state_bytes(), "specs": sorted(engine.specs),
+               "zero_params": sorted(e.name for e in engine.params
+                                     if e.zero is not None),
+               "zero_ema": sorted(e.name for e in engine.ema_entries or []
+                                  if e.zero is not None and e.name in init)}
+        if roundtrip:
+            out["roundtrip"] = _roundtrip(variant, layout, zero, dtype, out)
     else:
+        names = {id(p): n for n, p in model.module.named_parameters()}
+        order = [names[id(p)] for g in optimizer.param_groups
+                 for p in g["params"]]
         out = {"params": state.module.state_dict(),
                "ema": state.ema_module.state_dict(),
                "optimizer": state.optimizer.state_dict()}
-    out["opt_state"] = {f"{i}/{k}": v for i, st in out.pop(
+    out["opt_state"] = {f"{order[i]}/{k}": v for i, st in out.pop(
         "optimizer")["state"].items() for k, v in st.items()
         if isinstance(v, torch.Tensor) and v.ndim}
-    out.update(losses=losses, init=init, preds=preds)
+    out.update(losses=losses, init=init, preds=preds, norms=norms)
     return _detach(out)
 
 
-def _moe_run(layout, rows, steps=STEPS):
-    """`steps` un-augmented fp32 train steps of the tiny MoE ViT detector
-    on rows `rows` of the global batch."""
-    cfg = _moe_cfg()
-    model = build_model(copy.deepcopy(cfg), NUM_CLASSES, device="cpu",
-                        input_size=(SIZE, SIZE))
-    init = {k: v.clone() for k, v in model.module.state_dict().items()}
-    engine = (DataParallel(model.module, layout) if layout is not None
-              else None)
-    optimizer, _ = build_optimizer(
-        model.module, cfg["optimizer"], 10,
-        **(engine.optimizer_views() if engine is not None else {}))
+def _roundtrip(variant, layout, zero, dtype, saved):
+    """A new engine of the variant under `layout` at ZeRO level `zero`
+    loads the gathered module, EMA and optimizer state dicts `saved`
+    (each rank keeps its parts) and gathers them back; with the shapes of
+    the parts it holds."""
+    cfg = _cfg(variant)
+    cfg["dtype"] = None
+    model = build_model(cfg, NUM_CLASSES, device="cpu",
+                        input_size=(SIZE, SIZE), seed=7)
+    model.module.to(dtype)
+    engine = DataParallel(model.module, layout, zero=zero)
+    optimizer, _ = build_optimizer(model.module, cfg["optimizer"], 10,
+                                   **engine.optimizer_views())
     state = TrainState.create(model.module, optimizer, parallel=engine)
-    step = make_train_step(model.loss.train_loss)
-    images, labels = _batch(5, np.float32)
-    losses = [{k: float(v) for k, v in step(state, images[rows],
-                                            labels[rows]).items()}
-              for _ in range(steps)]
-    params = (engine.module_state_dict() if engine is not None
-              else state.module.state_dict())
-    return _detach({"losses": losses, "params": params, "init": init,
-                    "specs": sorted(engine.specs) if engine else []})
+    engine.load_module_state_dict(saved["params"])
+    engine.load_ema_state_dict(saved["ema"])
+    engine.load_optimizer_state_dict(saved["optimizer"])
+    order = [e.name for e in engine._opt_entries()]
+    return {"params": engine.module_state_dict(),
+            "ema": state.eval_module.state_dict(),
+            "opt_state": {f"{order[i]}/{k}": v for i, st in
+                          engine.optimizer_state_dict()["state"].items()
+                          for k, v in st.items()
+                          if isinstance(v, torch.Tensor) and v.ndim},
+            "held": {e.name: tuple(engine.held(e).shape)
+                     for e in engine.params}}
 
 
 def _detach(tree):
@@ -341,21 +428,27 @@ def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
     distributed.initialize(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
                            rank=rank, world_size=world, local_world_size=world)
     res = {}
-    layouts = {name: mesh.Layout(data, **kw)
-               for name, (data, kw) in F64_LAYOUTS.items()}
-    for name, layout in layouts.items():
-        res[f"f64/{name}"] = _yolox_run(layout, _rows(layout))
+    layouts = {}   # (data, Layout keywords) -> its Layout, made once
+    for name, (data, kw, zero, variant) in F64_LAYOUTS.items():
+        key = (data, tuple(sorted(kw.items())))
+        layout = layouts.setdefault(key, mesh.Layout(data, **kw))
+        res[f"f64/{name}"] = _run(variant, layout, _rows(layout), zero=zero,
+                                  roundtrip=name == "data2_model2_zero3")
         res[f"index/{name}"] = layout.index
-    tp_sp = layouts["model2_spatial2"]
-    res["f32/model2_spatial2"] = _yolox_run(
-        tp_sp, slice(0, BATCH), dtype=torch.float32, augment=False)
+    for name, (data, kw, zero, variant) in JAX_LAYOUTS.items():
+        layout = layouts[data, tuple(sorted(kw.items()))]
+        res[f"f32/{name}"] = _run(variant, layout, _rows(layout),
+                                  dtype=torch.float32, augment=False,
+                                  zero=zero)
+    tp_sp = layouts[1, (("model", 2), ("spatial", 2))]
     # the MoE FFN of the global batch on the data 2 ranks (model 2 alike)
-    data2 = layouts["data2_model2"]
+    data2 = layouts[2, (("model", 2),)]
     p, y = _moe_params()
     with mesh.use_layout(data2):
         res["moe_ffn"] = moe_ffn(p, y[_rows(data2)], 0.5)
-    ep = mesh.Layout(2, expert=2)
-    res["ep"] = _moe_run(ep, _rows(ep))
+    ep = layouts[2, (("expert", 2),)]
+    res["ep"] = _run("moe", ep, _rows(ep), dtype=torch.float32,
+                     augment=False)
     # the halo exchange: every op on every band layout
     sp4 = mesh.Layout(1, spatial=4)
     for op, band_name in HALO_CASES:
@@ -372,12 +465,21 @@ def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
 
 
 def _jax(out: str) -> None:
-    """The JAX references (the conftest's JAX settings, 8 virtual devices):
-    the fp32 step of the narrow YOLOX on make_mesh(model=2, spatial=2)
-    with `sp_constraint`, the MoE ViT's step on make_mesh(data=2,
-    expert=2), both from the port's initial weights, the leaves
-    `state_specs` shards, and `moe_ffn` of the global batch."""
+    """The JAX child: the references of `_jax_refs("tp_sp", "ep")`, under
+    the conftest's JAX settings (8 virtual devices)."""
     import conftest  # noqa: F401
+    torch.save(_jax_refs("tp_sp", "ep"), out)
+
+
+def _jax_refs(*parts: str) -> dict:
+    """The JAX package's references, from the port's initial weights:
+    "tp_sp", the fp32 step of the narrow YOLOX on make_mesh(model=2,
+    spatial=2) with `sp_constraint`; "combos", its ZeRO-3 step (with the
+    clip, `zero_constraint`) and the depthwise YOLOX's step on
+    make_mesh(data=2, model=2); "ep", the MoE ViT's step on make_mesh(
+    data=2, expert=2) and `moe_ffn` of the global batch; each with the
+    leaves `state_specs` shards. The JAX child computes "tp_sp" and "ep"
+    while the test process computes "combos" (no third process)."""
     import jax
     import jax.numpy as jnp
     from pl_yolo_tpu.layers import blocks as jb
@@ -385,7 +487,8 @@ def _jax(out: str) -> None:
     from pl_yolo_tpu.models.detector import build_model as jax_build_model
     from pl_yolo_tpu.parallel.mesh import (batch_sharding, make_mesh,
                                            shard_batch, shard_tp,
-                                           sp_constraint, state_specs)
+                                           sp_constraint, state_specs,
+                                           zero_constraint)
     from pl_yolo_tpu.train.optim import build_optimizer as jax_optimizer
     from pl_yolo_tpu.train.state import TrainState as JState
     from pl_yolo_tpu.train.state import make_train_step as jax_step
@@ -410,23 +513,47 @@ def _jax(out: str) -> None:
                                                   convt)[0])
         return sorted(names)
 
-    res = {}
-    prev = jb.get_compute_dtype()
-    jb.set_compute_dtype(None)
-    try:
-        # the narrow YOLOX on a 1 x 2 x 2 mesh
-        cfg = _yolox_cfg()
+    def on_axis(variables, mesh_, zero, axis, module=None):
+        """The torch names of the params, and of the EMA copy's params and
+        BN statistics, whose leaf `state_specs` of a TrainState at ZeRO
+        level `zero` shards over `axis`: {"params": [...], "ema": [...]}."""
+        convt = bridge._conv_transposes(module)
+        tx, _ = jax_optimizer({"name": "sgd"}, total_steps=10)
+        specs = state_specs(JState.create(variables, tx), mesh_, zero=zero)
+        out = {}
+        for part, trees in (("params", {"params": specs.params}),
+                            ("ema", {"params": specs.ema_params,
+                                     "batch_stats": specs.ema_batch_stats})):
+            names = []
+            for coll, tree in trees.items():
+                leaves = bridge._flatten({coll: variables[coll]})
+                for path, spec in jax.tree_util.tree_flatten_with_path(
+                        tree, is_leaf=lambda s: isinstance(
+                            s, jax.sharding.PartitionSpec))[0]:
+                    key = (coll,) + tuple(str(k.key) for k in path)
+                    if axis in tuple(spec):
+                        names.append(bridge._to_torch_key(
+                            key, leaves[key], convt)[0])
+            out[part] = sorted(names)
+        return out
+
+    def mesh_steps(variant, mesh_, zero=0):
+        """The fp32 step of a YOLOX variant on `mesh_` (ZeRO at `zero`,
+        with `zero_constraint`), two un-augmented steps from the port's
+        initial weights: the losses and the parameters."""
+        cfg = _cfg(variant)
         init = build_model(cfg, NUM_CLASSES, device="cpu",
                            input_size=(SIZE, SIZE)).module.state_dict()
         variables = bridge.state_dict_to_variables(
             {k: v.float() for k, v in init.items()})
-        mesh_ = make_mesh(model=2, spatial=2, devices=jax.devices()[:4])
-        res["tp_sp_specs"] = sharded(variables, mesh_)
         model = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
         tx, _ = jax_optimizer(cfg["optimizer"], total_steps=10)
-        state = shard_tp(JState.create(variables, tx), mesh_)
-        step = jax_step(model.module.apply, model.loss.train_loss,
-                        donate=False, constrain_images=sp_constraint(mesh_))
+        state = shard_tp(JState.create(variables, tx), mesh_, zero=zero)
+        step = jax_step(
+            model.module.apply, model.loss.train_loss, donate=False,
+            constrain_images=sp_constraint(mesh_),
+            constrain_state=(zero_constraint(state, mesh_, zero) if zero
+                             else None))
         images, labels = _batch(0)
         b = shard_batch(mesh_, {"images": jnp.asarray(images.numpy(),
                                                       jnp.float32),
@@ -437,7 +564,27 @@ def _jax(out: str) -> None:
                 state, lo = step(state, b["images"], b["labels"],
                                  jax.random.key(i))
                 losses.append({k: float(v) for k, v in lo.items()})
-        res["tp_sp"] = {"losses": losses, "params": flat(state)}
+        return {"losses": losses, "params": flat(state)}, variables
+
+    res = {}
+    prev = jb.get_compute_dtype()
+    jb.set_compute_dtype(None)
+    try:
+        if "tp_sp" in parts:     # the narrow YOLOX on a 1 x 2 x 2 mesh
+            mesh_ = make_mesh(model=2, spatial=2, devices=jax.devices()[:4])
+            res["tp_sp"], variables = mesh_steps("base", mesh_)
+            res["tp_sp_specs"] = sharded(variables, mesh_)
+        if "combos" in parts:    # ZeRO-3 and depthwise on data 2 x model 2
+            mesh_ = make_mesh(data=2, model=2, devices=jax.devices()[:4])
+            res["data2_model2_zero3"], variables = mesh_steps(
+                "zero3_clip", mesh_, zero=3)
+            res["zero3_specs"] = {axis: on_axis(variables, mesh_, 3, axis)
+                                  for axis in ("data", "model")}
+            res["data2_model2_depthwise"], variables = mesh_steps(
+                "depthwise", mesh_)
+            res["depthwise_specs"] = sharded(variables, mesh_)
+        if "ep" not in parts:
+            return res
         # the MoE ViT on data 2 x expert 2
         cfg = _moe_cfg()
         port = build_model(copy.deepcopy(cfg), NUM_CLASSES, device="cpu",
@@ -445,6 +592,9 @@ def _jax(out: str) -> None:
         variables = bridge.state_dict_to_variables(port.state_dict(), port)
         mesh_ = make_mesh(data=2, expert=2, devices=jax.devices()[:4])
         res["ep_specs"] = sharded(variables, mesh_, port)
+        res["ep_zero1_specs"] = {axis: on_axis(variables, mesh_, 1, axis,
+                                               port)
+                                 for axis in ("data", "expert")}
         model = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
         tx, _ = jax_optimizer(cfg["optimizer"], total_steps=10)
         state = shard_tp(JState.create(variables, tx), mesh_)
@@ -473,7 +623,7 @@ def _jax(out: str) -> None:
             jnp.asarray(y.float().numpy()), 0.5)))
     finally:
         jb.set_compute_dtype(prev)
-    torch.save(res, out)
+    return res
 
 
 def _free_port() -> int:
@@ -514,16 +664,19 @@ def runs(tmp_path_factory):
     coco = make_coco(tmp / "coco", num_images=8, num_classes=NUM_CLASSES)
     ranks = _spawn("ranks", 4, tmp, coco)
     jax_child = _spawn("jax", 1, tmp, coco)
-    one = {"f64": _yolox_run(None, slice(0, BATCH)),
-           "moe": _moe_run(None, slice(0, BATCH)),
+    one = {"f64": {v: _run(v, None, slice(0, BATCH)) for v in sorted(
+               {variant for *_, variant in F64_LAYOUTS.values()})},
+           "moe": _run("moe", None, slice(0, BATCH), dtype=torch.float32,
+                       augment=False),
            "fit": _fit(coco, tmp / "runs1", parallel=False)}
     p, y = _moe_params()
     one["moe_ffn"] = moe_ffn(p, y, 0.5)
     one["halo"] = {(op, band): _halo_run(op, *_halo_input(
         op, HALO_BANDS[band][1], HALO_BANDS[band][0]))
         for op, band in HALO_CASES}
+    combos = _jax_refs("combos")
     return {"one": one, "ranks": _collect(ranks),
-            "jax": _collect(jax_child)[0]}
+            "jax": {**_collect(jax_child)[0], **combos}}
 
 
 # --------------------------------------------------------------- helpers
@@ -533,16 +686,19 @@ def _scale(t):
 
 
 def _assert_changes_close(got: dict, want: dict, init: dict, tol: float,
-                          what: str):
+                          what: str, fp32_keys: str | None = None):
     """Each tensor's |got - want| <= tol x its change since `init` (at
-    least 1e-3 of the tree's largest change), plus 2 ulps of its value."""
+    least 1e-3 of the tree's largest change), plus 2 ulps of its value;
+    those whose key holds `fp32_keys` (computed in fp32 whatever the
+    module's dtype) within ROUTER_TOL instead."""
     changes = {k: _scale(want[k].double() - init[k].double()) for k in want
                if want[k].is_floating_point()}
     floor = 1e-3 * max(changes.values())
     for k, change in changes.items():
         err = _scale(got[k].double() - want[k].double())
         ulps = 2 * torch.finfo(want[k].dtype).eps * _scale(want[k])
-        assert err <= tol * max(change, floor) + ulps, (
+        bound = ROUTER_TOL if fp32_keys and fp32_keys in k else tol
+        assert err <= bound * max(change, floor) + ulps, (
             f"{what}: {k} differs by {err:.3e}, change {change:.3e}")
 
 
@@ -576,20 +732,33 @@ def test_ranks_lie_out_as_the_mesh_does(runs):
 @pytest.mark.parametrize("part", ["params", "ema", "opt_state", "losses",
                                   "preds"])
 def test_float64_steps_equal_one_process(runs, layout, part):
-    """Two augmented steps of the narrow yolox_s_tp2sp2 under model 2 x
-    spatial 2, data 2 x spatial 2 and data 2 x model 2: every rank's
-    gathered parameters, BN statistics, EMA and moments equal one
-    process's on the global batch to 1e-9 of their change, and so do its
-    losses; the eval predictions of the global batch through the EMA
-    gathered for validation (`TrainState.eval_module`) equal those of one
-    process's EMA to 1e-9 of their scale, the boxes and the scores each."""
-    ref = runs["one"]["f64"]
+    """Two augmented steps under each layout of `F64_LAYOUTS`: the narrow
+    yolox_s_tp2sp2 under model 2 x spatial 2, data 2 x spatial 2 and data
+    2 x model 2; ZeRO-3 (accumulate 2, clip) under data 2 x model 2 and
+    ZeRO-1 under data 2 x spatial 2; the tiny MoE ViT under data 2 x
+    expert 2 with ZeRO-1; remat and DropBlock under model 2 x spatial 2;
+    depthwise convs under data 2 x model 2. Every rank's gathered
+    parameters, BN statistics, EMA and moments equal one process's run of
+    the same config on the global batch to 1e-9 of their change (the MoE
+    router, fp32 in both packages, to ROUTER_TOL), and so do its losses
+    and the clip's global norm at each update (which binds: the norm is
+    above the clip); the eval predictions of the global batch through the
+    EMA gathered for validation (`TrainState.eval_module`) equal those of
+    one process's EMA to 1e-9 of their scale, the boxes and the scores
+    each."""
+    ref = runs["one"]["f64"][F64_LAYOUTS[layout][3]]
     assert ref["losses"][0]["proportion"] > 0
+    clip = _cfg(F64_LAYOUTS[layout][3])["optimizer"].get("clip_grad_norm")
+    assert len(ref["norms"]) == (1 if clip else 0)
+    assert all(n > clip for n in ref["norms"])
     for rank, res in enumerate(runs["ranks"]):
         got = res[f"f64/{layout}"]
         if part == "losses":
             _assert_losses(got["losses"], ref["losses"], F64_TOL,
                            f"rank {rank} {layout}")
+            assert len(got["norms"]) == len(ref["norms"])
+            for g, w in zip(got["norms"], ref["norms"]):
+                assert abs(g - w) <= F64_TOL * w, (rank, layout, g, w)
         elif part == "preds":
             assert got["preds"].shape == ref["preds"].shape
             for cols in (slice(0, 4), slice(4, None)):
@@ -602,7 +771,7 @@ def test_float64_steps_equal_one_process(runs, layout, part):
                     {k: torch.zeros_like(v) for k, v in ref[part].items()})
             assert set(got[part]) == set(ref[part])
             _assert_changes_close(got[part], ref[part], init, F64_TOL,
-                                  f"rank {rank} {layout} {part}")
+                                  f"rank {rank} {layout} {part}", ROUTER)
 
 
 def test_model_slices_hold_half_the_sharded_state(runs):
@@ -618,23 +787,48 @@ def test_model_slices_hold_half_the_sharded_state(runs):
         assert b["params"] == b["params_one_process"]
 
 
-@pytest.mark.parametrize("part", ["losses", "params"])
-def test_model2_spatial2_step_matches_the_jax_mesh_step(runs, part):
-    """fp32, two un-augmented steps: the 4 ranks against the JAX package's
-    step on make_mesh(model=2, spatial=2) with `sp_constraint`, as
-    `tests/test_parallel_sp.py` runs it and at its bounds: the losses of
-    each step and the parameters; and each parameter's change since the
-    init within SLICE_TOL of the JAX step's change (the first step's
-    learning rate is the warmup's 1e-5 of the base, so that the second
-    step makes the change this holds).
-    (Not the BatchNorm running statistics: that mesh step keeps twice the
-    single-device ones, where make_mesh(spatial=2) and make_mesh(model=2)
-    keep them; the port keeps the single-device function's, which the
-    float64 test holds it to.)"""
-    from pl_yolo_tpu_torch import bridge
-    want = runs["jax"]["tp_sp"]
+def test_zero3_over_model_slices_holds_a_quarter_of_the_state(runs):
+    """ZeRO-3 under data 2 x model 2: each rank holds its data part of
+    its cout slice of every sharded conv kernel, and its data part of the
+    tensors no slice takes; its params, moments and EMA are at most 0.35
+    of one process's (chip_smoke.py's bound for phase 19 (a)). ZeRO-1
+    under data 2 x spatial 2 halves the moments and the EMA only."""
+    for res in runs["ranks"]:
+        b = res["f64/data2_model2_zero3"]["bytes"]
+        for part in ("params", "opt_state", "ema"):
+            assert b[part] <= 0.35 * b[f"{part}_one_process"], (part, b)
+        b = res["f64/data2_spatial2_zero1"]["bytes"]
+        assert b["params"] == b["params_one_process"]
+        for part in ("opt_state", "ema"):
+            assert b[part] < 0.55 * b[f"{part}_one_process"], (part, b)
+
+
+@pytest.mark.parametrize("part", ["params", "ema", "opt_state"])
+def test_zero3_state_dicts_round_trip_over_model_slices(runs, part):
+    """ZeRO-3 under data 2 x model 2: the engine's gathered module, EMA
+    and optimizer state dicts, loaded into a new engine (each rank cuts
+    its slice, then its data part) and gathered back, are the same bit for
+    bit; each rank's optimizer then holds a quarter of a sharded kernel."""
     for rank, res in enumerate(runs["ranks"]):
-        got = res["f32/model2_spatial2"]
+        got = res["f64/data2_model2_zero3"]
+        back = got["roundtrip"]
+        assert set(back[part]) == set(got[part])
+        for k, v in got[part].items():
+            assert torch.equal(back[part][k], v), (rank, part, k)
+        w = got["params"]["backbone.stem.conv.conv.weight"]
+        assert tuple(back["held"]["backbone.stem.conv.conv.weight"]) == (
+            w.shape[0] // 2, w.shape[1] // 2) + tuple(w.shape[2:])
+
+
+def _assert_matches_jax_mesh_step(runs, layout, part):
+    """The 4 ranks' fp32 run of a layout of `JAX_LAYOUTS` against the JAX
+    package's mesh step: the losses of each step at SP_LOSS_RTOL, the
+    parameters at SP_PARAM_RTOL / SP_PARAM_ATOL, and each parameter's
+    change since the init within SLICE_TOL of the JAX step's change."""
+    from pl_yolo_tpu_torch import bridge
+    want = runs["jax"]["tp_sp" if layout == "model2_spatial2" else layout]
+    for rank, res in enumerate(runs["ranks"]):
+        got = res[f"f32/{layout}"]
         if part == "losses":
             for g, w in zip(got["losses"], want["losses"]):
                 np.testing.assert_allclose(g["loss"], w["loss"],
@@ -657,20 +851,75 @@ def test_model2_spatial2_step_matches_the_jax_mesh_step(runs, part):
             {k: init[k] for k in keys}, SLICE_TOL, f"rank {rank} vs JAX")
 
 
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_model2_spatial2_step_matches_the_jax_mesh_step(runs, part):
+    """fp32, two un-augmented steps: the 4 ranks against the JAX package's
+    step on make_mesh(model=2, spatial=2) with `sp_constraint`, as
+    `tests/test_parallel_sp.py` runs it and at its bounds: the losses of
+    each step and the parameters; and each parameter's change since the
+    init within SLICE_TOL of the JAX step's change (the first step's
+    learning rate is the warmup's 1e-5 of the base, so that the second
+    step makes the change this holds).
+    (Not the BatchNorm running statistics: that mesh step keeps twice the
+    single-device ones, where make_mesh(spatial=2) and make_mesh(model=2)
+    keep them; the port keeps the single-device function's, which the
+    float64 test holds it to.)"""
+    _assert_matches_jax_mesh_step(runs, "model2_spatial2", part)
+
+
+@pytest.mark.parametrize("layout", ["data2_model2_zero3",
+                                    "data2_model2_depthwise"])
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_zero3_and_depthwise_steps_match_the_jax_mesh_steps(runs, layout,
+                                                            part):
+    """fp32, two un-augmented steps on data 2 x model 2, as the test above
+    holds model 2 x spatial 2 and at its bounds: ZeRO-3 with the clip
+    against the JAX package's step with `shard_tp(zero=3)` and
+    `zero_constraint`, and the depthwise narrow YOLOX (grouped convs, each
+    rank its cout slice of whole groups) against the JAX step with the
+    depthwise kernels sharded on cout. (Parameters, not the BatchNorm
+    running statistics, as above.)"""
+    _assert_matches_jax_mesh_step(runs, layout, part)
+
+
 def test_sharded_weights_are_the_jax_specs_leaves(runs):
     """The port's model and expert slices are the leaves the JAX package's
     `state_specs` shards: every conv kernel whose cout the model width
-    divides (the narrow yolox_s_tp2sp2, 3 classes), and the MoE experts."""
+    divides (the narrow yolox_s_tp2sp2, 3 classes; the depthwise kernels
+    too), and the MoE experts. Under ZeRO its data parts are the leaves
+    `state_specs(..., zero=)` shards over 'data': at level 3 on data 2 x
+    model 2 the params (beside the 'model' ones) and the EMA, and at level
+    1 on data 2 x expert 2 the EMA copy's params and BN statistics (and
+    the moments, by the same rule)."""
     jax_res = runs["jax"]
-    tp = runs["ranks"][0]["f64/model2_spatial2"]["specs"]
+    rank0 = runs["ranks"][0]
+    tp = rank0["f64/model2_spatial2"]["specs"]
     assert tp == jax_res["tp_sp_specs"]
     assert "head.obj_pred0.weight" not in tp      # cout 1
     assert "head.reg_pred0.weight" in tp          # cout 4
-    assert runs["ranks"][0]["f64/data2_spatial2"]["specs"] == []
-    ep = runs["ranks"][0]["ep"]["specs"]
+    assert rank0["f64/data2_spatial2"]["specs"] == []
+    ep = rank0["ep"]["specs"]
     assert ep == jax_res["ep_specs"]
     assert sorted(k.split(".")[-1] for k in ep) == [
         "blocks_moe_b1", "blocks_moe_b2", "blocks_moe_w1", "blocks_moe_w2"]
+    dw = rank0["f64/data2_model2_depthwise"]["specs"]
+    assert dw == jax_res["depthwise_specs"]
+    assert "backbone.stage1_down.dconv.conv.weight" in dw
+    z3, want = rank0["f64/data2_model2_zero3"], jax_res["zero3_specs"]
+    assert z3["specs"] == want["model"]["params"]
+    assert z3["zero_params"] == want["data"]["params"]
+    assert z3["zero_ema"] == want["data"]["ema"]
+    # the prediction conv of cout 1: no model slice, a data part on cin
+    assert "head.obj_pred0.weight" in z3["zero_params"]
+    ez, want = rank0["f64/data2_expert2_zero1"], jax_res["ep_zero1_specs"]
+    assert ez["specs"] == want["expert"]["params"]
+    assert want["data"]["params"] == []          # level 1: params whole
+    assert ez["zero_ema"] == want["data"]["ema"]
+    # (at level 1 a parameter's ZeRO part is its moments' part: the EMA
+    # copy's rule, on the same shapes)
+    assert ez["zero_params"] == [k for k in want["data"]["ema"]
+                                 if not k.endswith(("running_mean",
+                                                    "running_var"))]
 
 
 @pytest.mark.parametrize("op,band", HALO_CASES)
@@ -795,7 +1044,10 @@ def test_four_rank_fit_validates(runs):
 
 def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
     """The JAX trainer's messages for the axes' sizes (no process group:
-    a world of one), and the combinations that name ROADMAP item 12c."""
+    a world of one), and the combinations that name ROADMAP item 12c:
+    a pipe width with a model width, the ViT under a model width. ZeRO
+    with the model or spatial axis, depthwise convs under the model axis,
+    and remat and DropBlock under the spatial axis pass that gate."""
     from synthetic_coco import make_coco
     root = make_coco(tmp_path / "coco", num_images=2)
     model_cfg, data_cfg, kw = _trainer_cfgs(root, tmp_path / "runs")
@@ -808,13 +1060,25 @@ def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
     moe["parallel"] = {"expert": 3}
     with pytest.raises(ValueError, match="must divide the device count"):
         Trainer(moe, data_cfg, **kw)
-    model_cfg["parallel"] = {"model": 2, "zero": True}
+    # ZeRO with the model axis, depthwise convs under it and remat with
+    # DropBlock under the spatial axis pass the port's gate: only the
+    # world's size stops them here
+    for depthwise, parallel in ((False, {"model": 2, "zero": True}),
+                                (True, {"model": 2}),
+                                (False, {"spatial": 2, "zero": 3})):
+        cfg = copy.deepcopy(model_cfg)
+        cfg["parallel"] = parallel
+        cfg["remat"] = "spatial" in parallel
+        cfg["backbone"].update(depthwise=depthwise,
+                               drop_block={"rate": 0.1, "size": 7})
+        with pytest.raises(ValueError, match="must divide the device count"):
+            Trainer(cfg, data_cfg, **kw)
+    model_cfg["parallel"] = {"model": 2, "pipeline": 2}
+    with pytest.raises(NotImplementedError, match="`pipeline`.*item 12c"):
+        Trainer(model_cfg, data_cfg, **kw)
+    moe["parallel"] = {"model": 2, "zero": True}
     with pytest.raises(NotImplementedError, match="item 12c"):
-        Trainer(model_cfg, data_cfg, **kw)
-    model_cfg["parallel"] = {"model": 2}
-    model_cfg["backbone"]["depthwise"] = True
-    with pytest.raises(NotImplementedError, match="grouped convs.*item 12c"):
-        Trainer(model_cfg, data_cfg, **kw)
+        Trainer(moe, data_cfg, **kw)
 
 
 def test_parallel_checks_name_the_jax_messages(monkeypatch, tmp_path):
@@ -866,7 +1130,12 @@ def test_sharded_modules_refuse_to_run_outside_a_layout():
 def test_spec_rules_follow_the_jax_ones():
     """`tp_spec`: a 4-D kernel whose cout the model width divides (dim 0
     in torch's layout), nothing else; `ep_spec`: the experts' [L, E, ...]
-    tensors on E, not the router."""
+    tensors on E, not the router. `zero_spec`: level 1 shards the moments
+    and the EMA, level 3 the params too, each along its first dim the data
+    width divides; over a model or expert slice, along the first such dim
+    the slice leaves free (JAX's "first free axis after the tp / ep
+    spec"), so that a [1, C] prediction kernel (no model slice) shards on
+    cin and a cout slice [C/M, C', 3, 3] on C'."""
     assert tensor.tp_spec((32, 16, 3, 3), 2) == 0
     assert tensor.tp_spec((7, 16, 3, 3), 2) is None
     assert tensor.tp_spec((32,), 2) is None
@@ -874,6 +1143,35 @@ def test_spec_rules_follow_the_jax_ones():
     assert tensor.ep_spec("backbone.blocks_moe_b1", (2, 4, 16), 2) == 1
     assert tensor.ep_spec("backbone.blocks_moe_router", (2, 8, 4), 4) is None
     assert tensor.ep_spec("backbone.blocks_moe_w1", (2, 3, 8, 16), 2) is None
+    assert mesh.zero_spec("opt_state", (32, 16, 3, 3), 2, 1) == 0
+    assert mesh.zero_spec("ema", (32,), 2, 1) == 0
+    assert mesh.zero_spec("params", (32, 16, 3, 3), 2, 1) is None
+    assert mesh.zero_spec("params", (32, 16, 3, 3), 2, 3) == 0
+    assert mesh.zero_spec("batch_stats", (32,), 2, 3) is None
+    assert mesh.zero_spec("opt_state", (1, 16, 1, 1), 2, 1) == 1
+    assert mesh.zero_spec("opt_state", (3, 3, 3, 3), 2, 3) is None
+    assert mesh.zero_spec("opt_state", (16, 16, 3, 3), 2, 3, taken=0) == 1
+    assert mesh.zero_spec("opt_state", (16, 3, 3, 3), 2, 3, taken=0) is None
+    assert mesh.zero_spec("ema", (2, 2, 8, 16), 2, 1, taken=1) == 0
+    assert mesh.zero_spec("ema", (3, 2, 8, 16), 2, 1, taken=1) == 2
+    assert mesh.zero_spec("opt_state", (32,), 4, 0) is None
+
+
+def test_grouped_conv_slices_hold_whole_groups():
+    """Under a model width M a grouped conv shards on cout where M divides
+    its groups, and its local conv reads its groups' input channels; where
+    M does not divide the groups, it raises naming item 12c instead of
+    replicating a kernel that JAX's spec shards."""
+    from types import SimpleNamespace
+    layout = SimpleNamespace(model=2, expert=1, model_group=None,
+                             model_index=1)
+    dw = torch.nn.Sequential(torch.nn.Conv2d(8, 8, 3, groups=8),
+                             torch.nn.Conv2d(8, 4, 1))
+    assert sorted(tensor.shard_specs(dw, layout)) == ["0.weight",
+                                                      "1.weight"]
+    odd = torch.nn.Sequential(torch.nn.Conv2d(6, 6, 3, groups=3))
+    with pytest.raises(NotImplementedError, match="3 groups.*item 12c"):
+        tensor.shard_specs(odd, layout)
 
 
 if __name__ == "__main__":

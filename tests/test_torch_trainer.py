@@ -239,8 +239,13 @@ def test_checkpoint_retention_matches_orbax(tmp_path):
 def test_unported_config_keys_raise_naming_their_item():
     """Tensor, spatial and expert parallelism (ROADMAP item 12b) are ported
     and pass, as do ZeRO, GPipe, multi-scale buckets and the general-gather
-    augmentation; the combinations of the parallel axes that no shipped
-    YAML uses raise naming item 12c."""
+    augmentation, and the first three parts of item 12c: ZeRO with the
+    model, spatial and expert axes, remat under tensor and spatial
+    parallelism and DropBlock under spatial, depthwise convs under tensor
+    parallelism. What is left of item 12c raises naming it: a pipe width
+    with a model, spatial or expert width, and tensor or spatial
+    parallelism on another family than CSPDarknet, CSPPAFPN and
+    DecoupledHead."""
     yolox = {k: _model_cfg()[k] for k in ("backbone", "neck", "head")}
     for key in ("model", "spatial", "expert"):
         check_ported({**yolox, "parallel": {key: 2}}, {})
@@ -254,19 +259,28 @@ def test_unported_config_keys_raise_naming_their_item():
                                     "perspective": 1e-4}})
     check_ported({"parallel": {"model": 1}}, {"transform": {}})
     vit = load_config(CONFIG_DIR / "model" / "vit_tiny_moe.yaml")
-    depthwise = {**yolox, "backbone": {**yolox["backbone"],
-                                       "depthwise": True}}
+    depthwise = {**yolox, **{part: {**yolox[part], "depthwise": True}
+                             for part in ("backbone", "neck", "head")}}
+    dropblock = {**yolox, "backbone": {**yolox["backbone"], "drop_block": {
+        "rate": 0.1, "size": 7}}}
     for cfg in ({**yolox, "parallel": {"model": 2, "zero": True}},
                 {**yolox, "parallel": {"spatial": 2, "zero": 3}},
                 {**vit, "parallel": {"expert": 2, "zero": True}},
-                {**vit, "parallel": {"expert": 2, "pipeline": 2}},
+                {**depthwise, "parallel": {"model": 2}},
+                {**depthwise, "parallel": {"spatial": 2}},
+                {**yolox, "remat": True, "parallel": {"model": 2}},
+                {**yolox, "remat": True, "parallel": {"spatial": 2}},
+                {**dropblock, "remat": True,
+                 "parallel": {"model": 2, "spatial": 2}},
+                {**dropblock, "parallel": {"spatial": 2, "zero": 3}}):
+        check_ported(cfg, {})
+    for cfg in ({**vit, "parallel": {"expert": 2, "pipeline": 2}},
                 {**yolox, "parallel": {"model": 2, "pipeline": 2}},
                 {**vit, "parallel": {"model": 2}},
                 {**vit, "parallel": {"spatial": 2}},
-                {**depthwise, "parallel": {"model": 2}}):
+                {**vit, "parallel": {"model": 2, "zero": True}}):
         with pytest.raises(NotImplementedError, match="item 12c"):
             check_ported(cfg, {})
-    check_ported({**depthwise, "parallel": {"spatial": 2}}, {})
     check_ported({**vit, "parallel": {"expert": 2}}, {})
 
 
