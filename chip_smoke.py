@@ -77,7 +77,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      checked again in a profiler window over one augmented step and one
      validation batch, finite losses, mAP and mAP50, at most 2 checkpoints,
      and the restored step, optimizer state, EMA and BN statistics equal to
-     the trained ones; then `python -m pl_yolo_tpu_torch` with 4 loader
+     the trained ones; beside all that, in child processes started first,
+     `python -m pl_yolo_tpu_torch` with 4 loader
      workers: SIGTERM in its 2nd epoch (exit 75, a checkpoint marked
      `preempted`), `--resume` to step 12, and `--test --ckpt`, which prints
      mAP; the epoch images/s through the loader with 0 and 4 workers, the
@@ -99,9 +100,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      share and peak memory, the OTA assignment alone, the top-k on its rows
      cold and back to back beside its bound, plain version and
      `torch.topk`); `python -m pl_yolo_tpu_torch -c yolov7.yaml` on 32
-     JPEGs for one epoch and a validation that prints mAP; `yolov5_s.yaml`:
-     2 augmented steps on the s2d route and a request; the YOLOv3 loss and
-     gradients on the card against the CPU;
+     JPEGs for one epoch and a validation that prints mAP, in a child
+     process beside the rest of the phase: `yolov5_s.yaml`: 2 augmented
+     steps on the s2d route and a request; the YOLOv3 loss and gradients
+     on the card against the CPU;
  12. the accuracy gate and the YOLOX trainer's options: (a) the port's
      `yolox_tiny` accuracy gate at its full recipe
      (`pl_yolo_tpu_torch.tools.accuracy_gate`: 100 epochs on 400 generated
@@ -215,7 +217,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      to the plain versions bit for bit; (b) one rank over NCCL: a ZeRO-3
      step; (c) `torchrun --nproc-per-node 2 -m pl_yolo_tpu_torch -c
      yolox_s_zero.yaml` for one epoch and a validation on 32 JPEGs at
-     320^2; a one-process `Trainer.fit` of the same configs here, whose
+     320^2, beside (b) and a one-process `Trainer.fit` of the same
+     configs here, whose
      checkpoint the rank-0 checkpoint's weights and EMA are held to
      (PARALLEL_CLI_TOL of the change from the init), then the rank-0
      checkpoint validated by that `Trainer` to the mAP the two ranks
@@ -285,7 +288,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      rank's held parameter, moment and EMA bytes against one process's,
      (a)'s at most COMBO_BYTES_SHARE of it; each rank's own calls of the
      warp, top-k and NMS kernels recorded and held to the plain versions
-     bit for bit; the phase's time.
+     bit for bit; the phase's time. In the same spawn, item 12c.4 part 1:
+     (f) `yolov7_tiny.yaml` (E-ELAN, the YOLOv7 neck, the implicit head
+     with its priors sliced on C, the OTA loss on the top-k kernel), 3
+     fp32 steps and a validation batch through the gathered EMA with NMS,
+     (g) `e-yolox_s.yaml` (ECMNet's depthwise convs, AL-PAFPN's bicubic
+     upsampling on bands) and (h) `yolov5_s.yaml` (the simple head), 2
+     fp32 steps each, all three at their published widths with {model:
+     2, spatial: 2}, held as (a)-(e) are; each run's own launches on
+     every rank (the warp in each, the top-k and NMS in (f)), and the
+     runs' seconds on the ranks and here.
 
 The anchor-family gates (`--model yolov7_tiny|yolov5_s --autoanchor`, 200
 epochs each) run through the gate's own command, not here: with them the
@@ -300,7 +312,8 @@ the `.pt2`'s input as `ms_deploy`, `plain_ms_deploy`, `bound_ms_deploy`,
 and phase 16's, which `launches_parallel` gives alone, and phase 17's,
 which `launches_tpsp` gives alone, and the ConvNeXt path's of phase 18,
 which `launches_extras` gives alone, and phase 19's, which
-`launches_combos` gives alone),
+`launches_combos` gives alone, of which its runs (f)-(h)'s
+`launches_families` gives alone),
 and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result where no CUDA card is available.
@@ -472,8 +485,17 @@ TPSP_RANKS, TPSP_BATCH, TPSP_STEPS, TPSP_BF16_STEPS, EP_STEPS = 4, 8, 3, 2, 2
 # bounds: (a) ZeRO-3 over model slices, (b) ZeRO-1 over bands, (c) remat
 # and DropBlock on bands of cout-sharded convs, (d) depthwise convs under
 # the model axis (yolox_nano at its published widths), (e) ZeRO-1 over
-# expert slices; (a) then in its bf16, timed
+# expert slices; (a) then in its bf16, timed; and item 12c.4 part 1, the
+# conv families beyond YOLOX at their published widths under model 2 x
+# spatial 2: (f) yolov7_tiny (E-ELAN, the YOLOv7 neck, the implicit head,
+# the OTA loss on the top-k kernel), 3 steps and a validation batch
+# through the gathered EMA with NMS, (g) e-yolox_s (ECMNet, AL-PAFPN's
+# bicubic upsampling on bands) and (h) yolov5_s (the simple head), 2
+# steps each
 COMBO_STEPS = 2
+FAMILY_RUNS = ("yolov7_tiny", "e-yolox_s", "yolov5_s")
+# the runs other than YOLOX's whose eval predictions are held too
+EVAL_RUNS = ("yolov7_tiny",)
 # a run's label -> (its model YAML, top-level keys set in its dict); a
 # label that is no key is its YAML's name
 RUN_CONFIGS = {"yolox_s_zero3_model2": ("yolox_s_zero", {}),
@@ -501,7 +523,10 @@ RANK_RUNS = {
          COMBO_STEPS, 0),
         ("yolox_nano", {"model": 2}, COMBO_STEPS, 0),
         ("vit_tiny_moe_zero1", {"expert": 2, "zero": True}, COMBO_STEPS,
-         0)]),
+         0),
+        ("yolov7_tiny", {"model": 2, "spatial": 2}, TPSP_STEPS, 0),
+        ("e-yolox_s", {"model": 2, "spatial": 2}, COMBO_STEPS, 0),
+        ("yolov5_s", {"model": 2, "spatial": 2}, COMBO_STEPS, 0)]),
 }
 # the eval predictions of a YOLOX run's rows through the ranks' gathered
 # EMA against one process's EMA's, fp32: |got - want| over the largest
@@ -1356,8 +1381,79 @@ def phase_trainer(torch, card: str, device) -> None:
 
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    finish_cli = None
     try:
         write_coco(tmp / "coco", TRAINER_IMAGES, NUM_CLASSES)
+
+        def cli_chain() -> None:
+            """The CLI on the same JPEGs, in child processes, beside the
+            in-process work below: SIGTERM in the second epoch, --resume,
+            --test."""
+            # the CLI, with 4 loader workers
+            model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco",
+                                                  4)
+            import yaml
+            (tmp / "model.yaml").write_text(yaml.safe_dump(model_cfg))
+            (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+            args = ["-c", str(tmp / "model.yaml"), "-d",
+                    str(tmp / "data.yaml"), "--max_epochs",
+                    str(TRAINER_EPOCHS), "--logger", "csv", "--output_dir",
+                    str(tmp / "runs"), "-n", "cli"]
+            if device.type != "cuda":  # the CLI's default is the card
+                args += ["--device", str(device)]
+            ckpts = tmp / "runs" / "cli" / "checkpoints"
+            note("trainer: CLI, SIGTERM in the second epoch")
+            rc, first = run_cli(args, 300, sigterm_after="epoch 0:")
+            steps = sorted(int(d.name) for d in ckpts.iterdir()
+                           if d.name.isdigit())
+            spe = TRAINER_STEPS // TRAINER_EPOCHS
+            if rc != 75 or len(steps) != 1 or not spe < steps[0] < 2 * spe:
+                raise AssertionError(f"preempted CLI: exit {rc}, "
+                                     f"checkpoints {steps}:\n"
+                                     + "\n".join(first[-30:]))
+            marked = json.loads((ckpts / str(steps[0]) / "metrics.json")
+                                .read_text())
+            if marked.get("preempted") != 1.0:
+                raise AssertionError(
+                    f"the preemption checkpoint says {marked}")
+            note("trainer: CLI --resume")
+            rc, resumed = run_cli([*args, "--resume"], 300)
+            mgr = CheckpointManager(ckpts)
+            kept = sorted(int(d.name) for d in ckpts.iterdir()
+                          if d.name.isdigit())
+            if rc != 0 or mgr.latest_step != TRAINER_STEPS or len(kept) > 2:
+                raise AssertionError(f"resumed CLI: exit {rc}, "
+                                     f"checkpoints {kept}:\n"
+                                     + "\n".join(resumed[-30:]))
+            if mgr.restore()["step"] != TRAINER_STEPS:
+                raise AssertionError("the resumed run's last checkpoint is "
+                                     f"not at step {TRAINER_STEPS}")
+            note("trainer: CLI --test")
+            rc, tested = run_cli([*args, "--test", "--ckpt", str(ckpts)],
+                                 300)
+            test_map = [line for line in tested
+                        if line.startswith("mAP = ")]
+            if rc != 0 or not test_map:
+                raise AssertionError(f"--test: exit {rc}:\n"
+                                     + "\n".join(tested[-30:]))
+            log(f"[trainer] CLI: SIGTERM in epoch 1 -> exit 75 with a "
+                f"preemption checkpoint at step {steps[0]}; --resume -> exit "
+                f"0 at step "
+                f"{mgr.latest_step}, checkpoints kept {kept}; --test -> "
+                f"'{test_map[-1]}'")
+            for what, lines in (("first run", first),
+                                ("resumed run", resumed)):
+                for i, (dt, ips, _, step_ips) in epoch_lines(lines).items():
+                    aug = "mosaic/mixup on" if i < 2 else "no-aug"
+                    log(f"[time] trainer epoch {i} of the CLI's {what} "
+                        f"({aug}, 4 loader workers, beside the in-process "
+                        f"work): {ips:.1f} images/s from JPEG decode through "
+                        f"the loader to the step ({dt:.1f} s); {step_ips:.1f} "
+                        f"images/s without the loader's wait, on {card}")
+
+        # (the CLI's epochs share the card with the in-process fit, loader
+        # and profiler runs below)
+        finish_cli = in_background(cli_chain)
         model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
         note(f"trainer: fit in process ({TRAINER_EPOCHS} epochs)")
         trainer = Trainer(copy.deepcopy(model_cfg), copy.deepcopy(data_cfg),
@@ -1580,59 +1676,9 @@ def phase_trainer(torch, card: str, device) -> None:
         del trainer, images, labels, step_fn
         if device.type == "cuda":
             torch.cuda.empty_cache()
-
-        # the CLI, with 4 loader workers
-        model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 4)
-        import yaml
-        (tmp / "model.yaml").write_text(yaml.safe_dump(model_cfg))
-        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
-        args = ["-c", str(tmp / "model.yaml"), "-d", str(tmp / "data.yaml"),
-                "--max_epochs", str(TRAINER_EPOCHS), "--logger", "csv",
-                "--output_dir", str(tmp / "runs"), "-n", "cli"]
-        if device.type != "cuda":  # the CLI's default is the card
-            args += ["--device", str(device)]
-        ckpts = tmp / "runs" / "cli" / "checkpoints"
-        note("trainer: CLI, SIGTERM in the second epoch")
-        rc, first = run_cli(args, 300, sigterm_after="epoch 0:")
-        steps = sorted(int(d.name) for d in ckpts.iterdir()
-                       if d.name.isdigit())
-        spe = TRAINER_STEPS // TRAINER_EPOCHS
-        if rc != 75 or len(steps) != 1 or not spe < steps[0] < 2 * spe:
-            raise AssertionError(f"preempted CLI: exit {rc}, checkpoints "
-                                 f"{steps}:\n" + "\n".join(first[-30:]))
-        marked = json.loads((ckpts / str(steps[0]) / "metrics.json")
-                            .read_text())
-        if marked.get("preempted") != 1.0:
-            raise AssertionError(f"the preemption checkpoint says {marked}")
-        note("trainer: CLI --resume")
-        rc, resumed = run_cli([*args, "--resume"], 300)
-        mgr = CheckpointManager(ckpts)
-        kept = sorted(int(d.name) for d in ckpts.iterdir()
-                      if d.name.isdigit())
-        if rc != 0 or mgr.latest_step != TRAINER_STEPS or len(kept) > 2:
-            raise AssertionError(f"resumed CLI: exit {rc}, checkpoints "
-                                 f"{kept}:\n" + "\n".join(resumed[-30:]))
-        if mgr.restore()["step"] != TRAINER_STEPS:
-            raise AssertionError("the resumed run's last checkpoint is not "
-                                 f"at step {TRAINER_STEPS}")
-        note("trainer: CLI --test")
-        rc, tested = run_cli([*args, "--test", "--ckpt", str(ckpts)], 300)
-        test_map = [line for line in tested if line.startswith("mAP = ")]
-        if rc != 0 or not test_map:
-            raise AssertionError(f"--test: exit {rc}:\n"
-                                 + "\n".join(tested[-30:]))
-        log(f"[trainer] CLI: SIGTERM in epoch 1 -> exit 75 with a preemption "
-            f"checkpoint at step {steps[0]}; --resume -> exit 0 at step "
-            f"{mgr.latest_step}, checkpoints kept {kept}; --test -> "
-            f"'{test_map[-1]}'")
-        for what, lines in (("first run", first), ("resumed run", resumed)):
-            for i, (dt, ips, loss, step_ips) in epoch_lines(lines).items():
-                log(f"[time] trainer epoch {i} of the CLI's {what} "
-                    f"({'mosaic/mixup on' if i < 2 else 'no-aug'}, 4 loader "
-                    f"workers): {ips:.1f} images/s from JPEG decode through "
-                    f"the loader to the step ({dt:.1f} s); {step_ips:.1f} "
-                    f"images/s without the loader's wait, on {card}")
     finally:
+        if finish_cli is not None:
+            finish_cli()
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[trainer] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -1722,6 +1768,27 @@ def start_cli_epoch(config: Path, tag: str, seed: int):
                 f"{epochs[0][2]:.3f}; '{maps_line[-1]}'")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+    return finish
+
+
+def in_background(fn):
+    """Run fn() in a thread; returns `finish()`, which waits for it and
+    returns its result, or raises what it raised."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as err:   # handed to finish()
+            out["error"] = err
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def finish():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out.get("value")
     return finish
 
 
@@ -2038,67 +2105,73 @@ def phase_anchor(torch, card: str, dev) -> dict:
                 f"{r['library_ms'] * 1e3:.2f} us, bound "
                 f"{r['bound_ms'] * 1e3:.3f} us ({bound_by}) on {card}")
 
-    # the CLI on a few JPEGs: one short epoch and a validation with mAP
-    cli_epoch(V7_CONFIG, "yolov7", seed=3)
+    # the CLI on a few JPEGs: one short epoch and a validation with mAP,
+    # beside the YOLOv5-s and YOLOv3 checks
+    finish_cli = start_cli_epoch(V7_CONFIG, "yolov7", seed=3)
+    try:
+        # YOLOv5-s: the Focus stem's s2d route, and one request
+        note("yolov5-s")
+        v5_cfg = config(V5_CONFIG)
+        v5 = build_model(v5_cfg, NUM_CLASSES, device=dev, seed=0)
+        optimizer, _ = build_optimizer(v5.module, v5_cfg["optimizer"],
+                                       total_steps=TOTAL_STEPS)
+        state = TrainState.create(v5.module, optimizer)
 
-    # YOLOv5-s: the Focus stem's s2d route, and one request
-    note("yolov5-s")
-    v5_cfg = config(V5_CONFIG)
-    v5 = build_model(v5_cfg, NUM_CLASSES, device=dev, seed=0)
-    optimizer, _ = build_optimizer(v5.module, v5_cfg["optimizer"],
-                                   total_steps=TOTAL_STEPS)
-    state = TrainState.create(v5.module, optimizer)
-
-    def s2d_apply(module, x):
-        with stem_input_s2d():
-            return module(x)
-    v5_step = make_train_step(v5.loss.train_loss, apply_fn=s2d_apply,
-                              augment_fn=augment.make_augment_fn(
-                                  aug_cfg, out_s2d=True))
-    v5_losses = []
-    for n in range(2):
+        def s2d_apply(module, x):
+            with stem_input_s2d():
+                return module(x)
+        v5_step = make_train_step(v5.loss.train_loss, apply_fn=s2d_apply,
+                                  augment_fn=augment.make_augment_fn(
+                                      aug_cfg, out_s2d=True))
+        v5_losses = []
+        for n in range(2):
+            before = launch_counts()
+            v5_losses.append(v5_step(state, aug_images, labels, generator=gen))
+            assert_launched(before, {"mosaic_warp": 2},
+                            f"yolov5-s augmented step {n}")
+            assert_finite_losses(torch, f"yolov5-s augmented step {n}",
+                                 v5_losses[-1])
         before = launch_counts()
-        v5_losses.append(v5_step(state, aug_images, labels, generator=gen))
-        assert_launched(before, {"mosaic_warp": 2},
-                        f"yolov5-s augmented step {n}")
-        assert_finite_losses(torch, f"yolov5-s augmented step {n}",
-                             v5_losses[-1])
-    before = launch_counts()
-    v5.module.eval()
-    with torch.inference_mode():
-        preds, det = infer(v5, requests[1])
-    assert_launched(before, {"nms_suppress": 1}, "yolov5-s request")
-    if not (bool(torch.isfinite(preds).all())
-            and bool(torch.isfinite(det.boxes).all())):
-        raise AssertionError("yolov5-s request: non-finite outputs")
-    log(f"[yolov5] yolov5_s.yaml bf16: 2 augmented steps of {BATCH}x{SIZE}x"
-        f"{SIZE} through the s2d stem, loss "
-        + " ".join(f"{float(h['loss']):.4f}" for h in v5_losses)
-        + f", proportion {float(v5_losses[-1]['proportion']):.2f}; 1 request:"
-        f" {int(det.valid.sum())} detections kept")
-    del v5, state
+        v5.module.eval()
+        with torch.inference_mode():
+            preds, det = infer(v5, requests[1])
+        assert_launched(before, {"nms_suppress": 1}, "yolov5-s request")
+        if not (bool(torch.isfinite(preds).all())
+                and bool(torch.isfinite(det.boxes).all())):
+            raise AssertionError("yolov5-s request: non-finite outputs")
+        log(f"[yolov5] yolov5_s.yaml bf16: 2 augmented steps of "
+            f"{BATCH}x{SIZE}x{SIZE} through the s2d stem, loss "
+            + " ".join(f"{float(h['loss']):.4f}" for h in v5_losses)
+            + f", proportion {float(v5_losses[-1]['proportion']):.2f}; 1 "
+            f"request: {int(det.valid.sum())} detections kept")
+        del v5, state
 
-    # YOLOv3: the loss and its gradients on the card against the CPU
-    g3 = torch.Generator(device="cpu").manual_seed(9)
-    v3_maps = [torch.randn((2, SIZE // s, SIZE // s, 3 * (5 + NUM_CLASSES)),
-                           generator=g3) for s in (32, 16, 8)]
-    sides = {}
-    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        outs = [m.to(device).requires_grad_() for m in v3_maps]
-        loss = yolov3.yolov3_loss(outs, labels[:2].to(device), NUM_CLASSES,
-                                  img_size=(SIZE, SIZE))["loss"]
-        loss.backward()
-        sides[side] = (float(loss.detach()), [o.grad.cpu() for o in outs])
-    (l3_card, g3_card), (l3_cpu, g3_cpu) = sides["card"], sides["cpu"]
-    l3_err = abs(l3_card - l3_cpu) / abs(l3_cpu)
-    g3_err = max(float((a - b).abs().max() / b.abs().max())
-                 for a, b in zip(g3_card, g3_cpu))
-    log(f"[yolov3] loss card vs CPU on random maps at B=2, {SIZE}^2: "
-        f"{l3_card:.6f} vs {l3_cpu:.6f}, relative error {l3_err:.3e}, of a "
-        f"map's gradient {g3_err:.3e} (tolerance {LOSS_TOL})")
-    if not (l3_err <= LOSS_TOL and g3_err <= LOSS_TOL):
-        raise AssertionError(f"yolov3 loss on the card != CPU: {l3_err}, "
-                             f"{g3_err}")
+        # YOLOv3: the loss and its gradients on the card against the CPU
+        g3 = torch.Generator(device="cpu").manual_seed(9)
+        v3_maps = [torch.randn((2, SIZE // s, SIZE // s,
+                                3 * (5 + NUM_CLASSES)), generator=g3)
+                   for s in (32, 16, 8)]
+        sides = {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            outs = [m.to(device).requires_grad_() for m in v3_maps]
+            loss = yolov3.yolov3_loss(outs, labels[:2].to(device),
+                                      NUM_CLASSES,
+                                      img_size=(SIZE, SIZE))["loss"]
+            loss.backward()
+            sides[side] = (float(loss.detach()),
+                           [o.grad.cpu() for o in outs])
+        (l3_card, g3_card), (l3_cpu, g3_cpu) = sides["card"], sides["cpu"]
+        l3_err = abs(l3_card - l3_cpu) / abs(l3_cpu)
+        g3_err = max(float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(g3_card, g3_cpu))
+        log(f"[yolov3] loss card vs CPU on random maps at B=2, {SIZE}^2: "
+            f"{l3_card:.6f} vs {l3_cpu:.6f}, relative error {l3_err:.3e}, "
+            f"of a map's gradient {g3_err:.3e} (tolerance {LOSS_TOL})")
+        if not (l3_err <= LOSS_TOL and g3_err <= LOSS_TOL):
+            raise AssertionError(f"yolov3 loss on the card != CPU: {l3_err}, "
+                                 f"{g3_err}")
+    finally:
+        finish_cli()
     log(f"[anchor] phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": path_launches["topk_rows"], "max_abs_err": topk_err,
             "records": rec}
@@ -3401,9 +3474,9 @@ def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
     Returns the global losses of each step, its seconds, the state and the
     EMA as one process keeps them (fp32; the EMA as validation takes it,
     gathered from the ranks' parts where they hold parts), the engine's
-    state bytes and, for the YOLOX configs, the eval predictions of the
-    rows through that EMA and their count of detections after
-    `postprocess`."""
+    state bytes and, for the YOLOX configs and `EVAL_RUNS`, the eval
+    predictions of the rows through that EMA and their count of detections
+    after `postprocess`."""
     from pl_yolo_tpu_torch.data.augment import AugmentConfig, make_augment_fn
     from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d
     from pl_yolo_tpu_torch.models.detector import build_model
@@ -3466,7 +3539,7 @@ def parallel_run(torch, name: str, dev, layout, rows, fp32: bool,
         res["ema"] = {k: v.detach().clone() for k, v in
                       eval_module.state_dict().items()}
         res["init"] = init
-    if name.startswith("yolox_"):
+    if name.startswith("yolox_") or name in EVAL_RUNS:
         preds = make_eval_step(model.loss.eval_decode)(
             eval_module, images.float())
         det = postprocess(preds, conf_threshold=CONF_TRAINED,
@@ -3516,6 +3589,7 @@ def rank_child(tag: str, rank: int, port: int, out_dir: str,
             per = batch // layout.data
             rows = slice(layout.data_index * per,
                          (layout.data_index + 1) * per)
+            before, t0 = launch_counts(), time.perf_counter()
             res[name] = parallel_run(torch, name, dev, layout, rows,
                                      fp32=True, steps=steps, batch=batch,
                                      parallel=parallel)
@@ -3529,6 +3603,11 @@ def rank_child(tag: str, rank: int, port: int, out_dir: str,
                 res[name + " bf16"] = parallel_run(
                     torch, name, dev, layout, rows, fp32=False,
                     steps=bf16_steps, batch=batch, parallel=parallel)
+            # the run's own launches (the fp32 and bf16 steps, its eval
+            # batch) and its wall seconds on this rank
+            res[name]["launches"] = {k: v - before[k] for k, v in
+                                     launch_counts().items()}
+            res[name]["wall_s"] = time.perf_counter() - t0
     res["launches"] = launch_counts()
     res["checks"] = path_calls_equal_plain(torch, records,
                                            f"rank {rank} of phase {phase}")
@@ -3587,9 +3666,11 @@ def run_ranks(torch, tag: str, dev, tmp: Path) -> tuple[list, dict, str]:
             for r in range(n)]
         refs = {}
         for name, _, steps, bf16_steps in runs:
+            t0 = time.perf_counter()
             refs[name] = parallel_run(torch, name, dev, None,
                                       slice(0, batch), fp32=True,
                                       steps=steps, batch=batch)
+            refs[name]["wall_s"] = time.perf_counter() - t0
             if bf16_steps:
                 refs[name + " bf16"] = parallel_run(
                     torch, name, dev, None, slice(0, batch), fp32=False,
@@ -3699,6 +3780,7 @@ def phase_parallel(torch, card: str, dev) -> dict:
     autotune = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    child = None   # torchrun
     try:
         # 1. two ranks on the one card, spawned once; the one-process
         # references meanwhile, here, before the ranks' steps start
@@ -3753,7 +3835,32 @@ def phase_parallel(torch, card: str, dev) -> dict:
                 raise AssertionError(f"rank {r}: moments not sharded: {b}")
         launches, errs = rank_kernels(ranks, "parallel")
 
-        # 2. one rank over NCCL: a ZeRO-3 step puts its all-gathers,
+        # 2. torchrun: one epoch and a validation of yolox_s_zero at 320^2,
+        # started here and run beside the NCCL step and the one-process fit
+        # below; then its rank-0 checkpoint validated by one process
+        note("parallel: torchrun")
+        write_coco(tmp / "coco", PARALLEL_CLI_IMAGES, NUM_CLASSES, seed=16)
+        model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
+        data_cfg["dataset"].update(
+            train_size=[PARALLEL_CLI_SIZE] * 2,
+            val_size=[PARALLEL_CLI_SIZE] * 2)
+        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", str(PARALLEL_RANKS), "--master-port",
+             str(free_port()), "-m", "pl_yolo_tpu_torch", "-c",
+             str(MODEL_DIR / "yolox_s_zero.yaml"), "-d",
+             str(tmp / "data.yaml"), "--max_epochs", "1", "--logger", "csv",
+             "--output_dir", str(tmp / "runs"), "-n", "zero_cli"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        outputs: list = []
+        cli_out = threading.Thread(
+            target=lambda: outputs.append(child.communicate()), daemon=True)
+        cli_out.start()
+
+        # 3. one rank over NCCL: a ZeRO-3 step puts its all-gathers,
         # reduce-scatters, all-reduces and broadcasts on the card
         note("parallel: NCCL")
         distributed.initialize(device=dev, init_method=f"tcp://127.0.0.1:"
@@ -3785,34 +3892,9 @@ def phase_parallel(torch, card: str, dev) -> dict:
             f"{float(z3['loss']):.4f}; params held as shards "
             f"{zb['params'] / 2**20:.1f} MiB")
 
-        # 3. torchrun: one epoch and a validation of yolox_s_zero at 320^2,
-        # then its rank-0 checkpoint validated by one process
-        note("parallel: torchrun")
-        write_coco(tmp / "coco", PARALLEL_CLI_IMAGES, NUM_CLASSES, seed=16)
-        model_cfg, data_cfg = trainer_configs(load_config, tmp / "coco", 0)
-        data_cfg["dataset"].update(
-            train_size=[PARALLEL_CLI_SIZE] * 2,
-            val_size=[PARALLEL_CLI_SIZE] * 2)
-        (tmp / "data.yaml").write_text(yaml.safe_dump(data_cfg))
-        t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run",
-             "--nproc-per-node", str(PARALLEL_RANKS), "--master-port",
-             str(free_port()), "-m", "pl_yolo_tpu_torch", "-c",
-             str(MODEL_DIR / "yolox_s_zero.yaml"), "-d",
-             str(tmp / "data.yaml"), "--max_epochs", "1", "--logger", "csv",
-             "--output_dir", str(tmp / "runs"), "-n", "zero_cli"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        lines = child.stdout.splitlines()
-        maps_line = [line for line in lines if line.startswith("mAP = ")]
-        if child.returncode != 0 or not maps_line:
-            raise AssertionError(f"torchrun: exit {child.returncode}:\n"
-                                 + "\n".join((child.stdout + child.stderr)
-                                             .splitlines()[-40:]))
-        ckpt = tmp / "runs" / "zero_cli" / "checkpoints"
-        # one process fits the same configs; the rank-0 checkpoint's
-        # weights and EMA against its checkpoint's
+        # one process fits the same configs, beside torchrun; the rank-0
+        # checkpoint's weights and EMA against its checkpoint's
+        note("parallel: one-process fit beside torchrun")
         model_cfg = load_config(MODEL_DIR / "yolox_s_zero.yaml")
         trainer = Trainer(model_cfg, data_cfg, max_epochs=1, logger="csv",
                           output_dir=str(tmp / "one"), device=dev,
@@ -3820,6 +3902,18 @@ def phase_parallel(torch, card: str, dev) -> dict:
         init = {k: v.detach().clone() for k, v in
                 trainer.model.module.state_dict().items()}
         trainer.fit()
+        cli_out.join(600)
+        if not outputs:
+            raise AssertionError("torchrun did not end within 600 s")
+        cli_s = time.perf_counter() - t0
+        stdout, stderr = outputs[0]
+        lines = stdout.splitlines()
+        maps_line = [line for line in lines if line.startswith("mAP = ")]
+        if child.returncode != 0 or not maps_line:
+            raise AssertionError(f"torchrun: exit {child.returncode}:\n"
+                                 + "\n".join((stdout + stderr)
+                                             .splitlines()[-40:]))
+        ckpt = tmp / "runs" / "zero_cli" / "checkpoints"
 
         def last_state(root):
             steps = sorted(root.glob("*/state.pt"),
@@ -3844,7 +3938,8 @@ def phase_parallel(torch, card: str, dev) -> dict:
                                  f"{ap:.4f} in one process, {want} in two")
         log(f"[parallel] `torchrun --nproc-per-node 2 -m pl_yolo_tpu_torch "
             f"-c yolox_s_zero.yaml` on {PARALLEL_CLI_IMAGES} JPEGs at "
-            f"{PARALLEL_CLI_SIZE}^2: exit 0 in {cli_s:.1f} s, "
+            f"{PARALLEL_CLI_SIZE}^2, beside the NCCL step and the "
+            f"one-process fit: exit 0 in {cli_s:.1f} s, "
             f"'{maps_line[-1]}'; its rank-0 checkpoint (step {two['step']}) "
             f"against a one-process fit of the same configs, bf16: weights "
             f"{ckpt_err['module']:.3e}, EMA {ckpt_err['ema_module']:.3e} of "
@@ -3854,6 +3949,13 @@ def phase_parallel(torch, card: str, dev) -> dict:
             if line.startswith(("[parallel]", "epoch ")):
                 log(f"[parallel]   torchrun: {line}")
     finally:
+        if child is not None and child.poll() is None:
+            child.terminate()   # torchrun passes it on to its ranks
+            try:
+                child.wait(30)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
         torch.backends.cudnn.benchmark = autotune
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[parallel] phase 16 took {time.perf_counter() - t_phase:.1f} s")
@@ -4003,11 +4105,30 @@ def phase_combos(torch, card: str, dev) -> dict:
             f"{max(g['peak_gib'] for g in ranks):.1f} GiB on {card}")
         launches, errs = rank_kernels(ranks, "combos")
         log(f"[combos] the kernels' launches on the 4 ranks: {launches}")
+        # (f)-(h): item 12c.4 part 1, each run's own launches
+        families = {k: 0 for k in GATE_KERNELS}
+        for r, got in enumerate(ranks):
+            for name in FAMILY_RUNS:
+                run = got[name]["launches"]
+                need = (GATE_KERNELS if name in EVAL_RUNS
+                        else ("mosaic_warp",))
+                if not all(run[k] for k in need):
+                    raise AssertionError(f"{name}: rank {r} launched {run}")
+                for k in GATE_KERNELS:
+                    families[k] += run[k]
+        ranks_s = max(sum(g[n]["wall_s"] for n in FAMILY_RUNS)
+                      for g in ranks)
+        log(f"[families] (f)-(h) {', '.join(FAMILY_RUNS)} under model 2 x "
+            f"spatial 2: the kernels' launches on the 4 ranks {families}; "
+            f"the runs took {ranks_s:.1f} s on the ranks (worst rank) and "
+            f"{sum(refs[n]['wall_s'] for n in FAMILY_RUNS):.1f} s for the "
+            f"one-process references here, on {card}")
     finally:
         torch.backends.cudnn.benchmark = autotune
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[combos] phase 19 took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "max_abs_err": errs}
+    return {"launches": launches, "max_abs_err": errs,
+            "families": families}
 
 
 def randomize_(torch, module, gen) -> None:
@@ -5546,7 +5667,7 @@ def main() -> int:
     # spatial and expert axes
     note("combos")
     combos = phase_combos(torch, card, dev)
-    cl = combos["launches"]
+    cl, fl = combos["launches"], combos["families"]
     max_err = max(max_err, combos["max_abs_err"]["nms_suppress"])
     topk_err = max(topk_err, combos["max_abs_err"]["topk_rows"])
     warp_err = max(warp_err, combos["max_abs_err"]["mosaic_warp"])
@@ -5567,6 +5688,7 @@ def main() -> int:
         "launches_parallel": pl["nms_suppress"],
         "launches_tpsp": tl["nms_suppress"],
         "launches_combos": cl["nms_suppress"],
+        "launches_families": fl["nms_suppress"],
         "max_abs_err": max_err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
@@ -5583,6 +5705,7 @@ def main() -> int:
         "launches_extras": ex["topk_rows"],
         "launches_parallel": pl["topk_rows"],
         "launches_tpsp": tl["topk_rows"], "launches_combos": cl["topk_rows"],
+        "launches_families": fl["topk_rows"],
         "max_abs_err": topk_err,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": topk_recs["-cost M=50"]["bound_ms"],
@@ -5599,6 +5722,7 @@ def main() -> int:
         "launches_parallel": pl["mosaic_warp"],
         "launches_tpsp": tl["mosaic_warp"],
         "launches_combos": cl["mosaic_warp"],
+        "launches_families": fl["mosaic_warp"],
         "max_abs_err": warp_err,
         "ms": warp_mean("ms"), "plain_ms": warp_mean("plain_ms"),
         "bound_ms": warp_mean("bound_ms"),

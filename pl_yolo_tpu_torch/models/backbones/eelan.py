@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...layers.blocks import ConvBlock, SPPBottleneck
+from ...parallel.mesh import spatial_layout
 
 
 class ELANBlock(nn.Module):
@@ -52,7 +53,18 @@ class ELANBlock(nn.Module):
 
 
 def max_pool_stride2(x: torch.Tensor, k: int = 2) -> torch.Tensor:
-    """k x k max pool at stride k, VALID (no padding), NCHW."""
+    """k x k max pool at stride k, VALID (no padding), NCHW.
+
+    Local on a band of rows (`parallel: {spatial: S}`) as long as each
+    band holds a multiple of k rows: the windows then never cross a
+    band's edge. The pools (E-ELAN's `Transition`s of stages 2-4 and the
+    YOLOv7 neck's `V7Transition`s) take maps at strides 4, 8 and 16, whose
+    bands hold H / (4·S), H / (8·S) and H / (16·S) rows; the trainer's
+    check H % (32·S) == 0 makes the coarsest 2·H / (32·S), even, and the
+    finer ones multiples of it."""
+    if x.shape[2] % k and spatial_layout() is not None:
+        raise ValueError(f"a VALID {k}x{k} stride-{k} pool of {x.shape[2]} "
+                         f"rows: a band must hold a multiple of {k} rows")
     return F.max_pool2d(x, k, stride=k)
 
 

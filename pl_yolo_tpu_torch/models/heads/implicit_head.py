@@ -10,6 +10,10 @@ The head computes in fp32 whatever the model's compute dtype, as the JAX
 package's does: there `x + ia` promotes a bf16 map to the fp32 prior, and
 its `Conv1x1` promotes to its fp32 kernel. The priors are [1, C, 1, 1] here
 and [1, 1, 1, C] in flax (`bridge` maps them).
+
+Under `parallel: {model: M}` each rank may hold a C slice of a prior (the
+JAX spec shards it on C where M divides C), which is gathered where it is
+used, and a cout slice of a conv, which runs through `apply_conv`.
 """
 
 from __future__ import annotations
@@ -19,10 +23,16 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ...layers.blocks import apply_conv
+from ...parallel.tensor import whole
+
 
 class ImplicitHead(nn.Module):
     """`in_channels` are the widths of the input maps (flax infers them; the
     config's head `channels` are not read)."""
+
+    # the priors shard on C over the model group (`parallel.tensor`)
+    GATHERED_DIM = 1
 
     def __init__(self, num_classes: int = 80, n_anchors: int = 3,
                  in_channels: Sequence[int] = (256, 512, 1024)):
@@ -48,7 +58,9 @@ class ImplicitHead(nn.Module):
     def forward(self, inputs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         outputs = []
         for k, x in enumerate(inputs):
-            x = x.float() + getattr(self, f"ia{k}")
-            x = getattr(self, f"conv{k}")(x) * getattr(self, f"im{k}")
+            x = x.to(torch.promote_types(x.dtype, torch.float32))
+            x = x + whole(getattr(self, f"ia{k}"), 1, x.shape[1])
+            x = apply_conv(getattr(self, f"conv{k}"), x)
+            x = x * whole(getattr(self, f"im{k}"), 1, x.shape[1])
             outputs.append(x.permute(0, 2, 3, 1))
         return outputs

@@ -3,7 +3,8 @@ of `pl_yolo_tpu/models/heads/simple_head.py`. Output per level: NHWC
 [B, H, W, na*(5+C)].
 
 The convs run in fp32 whatever the model's compute dtype, as the JAX
-package's `Conv1x1` promotes to its fp32 kernel.
+package's `Conv1x1` promotes to its fp32 kernel. Under `parallel: {model:
+M}` a conv may hold a cout slice: it runs through `apply_conv`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from ...layers.blocks import apply_conv
 
 
 class SimpleHead(nn.Module):
@@ -27,5 +30,6 @@ class SimpleHead(nn.Module):
             nn.init.zeros_(getattr(self, f"conv{k}").bias)
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        return [getattr(self, f"conv{k}")(x.float()).permute(0, 2, 3, 1)
-                for k, x in enumerate(inputs)]
+        return [apply_conv(getattr(self, f"conv{k}"), x.to(
+            torch.promote_types(x.dtype, torch.float32))).permute(0, 2, 3, 1)
+            for k, x in enumerate(inputs)]

@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 from ...layers.blocks import (BN_EPS, BN_MOMENTUM, SPPCSPC, BatchNorm2d,
-                              ConvBlock, get_activation, upsample_nearest_2x)
+                              ConvBlock, apply_conv, get_activation,
+                              upsample_nearest_2x)
 from ..backbones.eelan import max_pool_stride2
 
 
@@ -74,7 +75,10 @@ class RepConv(nn.Module):
 
     It computes in fp32 whatever the model's compute dtype: the JAX
     package's RepConv uses bare `nn.Conv` / `nn.BatchNorm` without a dtype,
-    which promote a bf16 input to their fp32 params."""
+    which promote a bf16 input to their fp32 params. Both convs run
+    through `apply_conv`: on a band of rows (`parallel: {spatial}`) the
+    3x3 takes its halo rows, and a cout slice (`{model}`) gathers its
+    channels; the identity BN is local."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  act: str = "silu"):
@@ -92,8 +96,8 @@ class RepConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
-        out = (self.rbr_dense_bn(self.rbr_dense_conv(x))
-               + self.rbr_1x1_bn(self.rbr_1x1_conv(x)))
+        out = (self.rbr_dense_bn(apply_conv(self.rbr_dense_conv, x))
+               + self.rbr_1x1_bn(apply_conv(self.rbr_1x1_conv, x)))
         if self.rbr_identity is not None:
             out = out + self.rbr_identity(x)
         return self.act(out)

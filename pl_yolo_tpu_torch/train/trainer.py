@@ -60,17 +60,21 @@ from .optim import build_optimizer
 from .state import TrainState, make_eval_step, make_train_step
 
 
-# the families whose convs and pools the tensor and spatial paths cover
-TP_SP_FAMILIES = {"backbone": "cspdarknet", "neck": "csppafpn",
-                  "head": "decoupled_head"}
+# the families whose convs, pools and resizes the tensor and spatial paths
+# cover: YOLOX's, YOLOv7's (E-ELAN, the YOLOv7 neck, the implicit head),
+# YOLOv5's simple head and e-YOLOX's (ECMNet, AL-PAFPN)
+TP_SP_FAMILIES = {"backbone": ("cspdarknet", "eelan", "ecmnet"),
+                  "neck": ("csppafpn", "yolov7neck", "al_pafpn"),
+                  "head": ("decoupled_head", "implicit_head", "simple_head")}
 
 
 def check_ported(model_cfg: dict, data_cfg: dict) -> None:
     """Raise on config keys whose machinery the port does not have yet:
     combinations of the parallel axes that the JAX package takes through
     GSPMD (ROADMAP queue A, item 12c): tensor and spatial parallelism
-    outside CSPDarknet, CSPPAFPN and DecoupledHead, and a pipe width with
-    a model, spatial or expert width."""
+    outside the families of `TP_SP_FAMILIES` (the transformer backbones,
+    MobileNetV3, ShuffleNetV2, CSPMobileNext and the extras), and a pipe
+    width with a model, spatial or expert width."""
     par = model_cfg.get("parallel", {}) or {}
     if par.get("zero") not in (None, False, True, 0, 1, 3):
         raise ValueError(f"parallel.zero={par['zero']!r}: take true or 3")
@@ -85,12 +89,11 @@ def check_ported(model_cfg: dict, data_cfg: dict) -> None:
         refuse(f"`pipeline` with {wide}")
     tp_sp = {k: v for k, v in wide.items() if k in ("model", "spatial")}
     if tp_sp:
-        for part, name in TP_SP_FAMILIES.items():
+        for part, names in TP_SP_FAMILIES.items():
             got = (model_cfg.get(part) or {}).get("name")
-            if got != name:
+            if got not in names:
                 refuse(f"{tp_sp} on {part} {got!r} (tensor and spatial "
-                       "parallelism cover CSPDarknet, CSPPAFPN and "
-                       "DecoupledHead)")
+                       f"parallelism cover the {part}s {names})")
     t_cfg = data_cfg.get("transform", {}) or {}
     check_config(AugmentConfig.from_dict(t_cfg))  # use_pallas
 

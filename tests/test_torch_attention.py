@@ -21,6 +21,8 @@ gradient's scale has a floor of 1e-2 of the module's largest gradient. A
 wrong axis, scale or padding moves a tensor by O(1) of its scale.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,12 @@ from pl_yolo_tpu_torch.layers.attention_extra import (
 
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
+
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 SHAPE, SIZE = (2, 8, 8, 16), (8, 8)
 # worst max |port - JAX| / scale measured on the CPU over the 44 entries:
@@ -124,7 +132,7 @@ def test_attention_forward_and_gradients_match_jax(name):
     params = variables["params"] if "params" in variables else {}
     rest = {k: v for k, v in variables.items() if k != "params"}
 
-    @jax.jit
+    @_jit
     def jax_side(params, xs, cot):
         def f(p, u):
             return jmod.apply({"params": p, **rest} if p else rest, u)
@@ -160,7 +168,7 @@ def test_attention_train_forward_and_running_stats_match_jax(name):
     over B = 2 values a channel) and the running statistics take flax's
     momentum 0.99 and biased variance, at TOL."""
     jmod, tmod, variables, xs, _ = _pair(name)
-    want, mutated = jax.jit(lambda v, x: jmod.apply(
+    want, mutated = _jit(lambda v, x: jmod.apply(
         v, x, True, mutable=["batch_stats"]))(variables, jnp.asarray(xs))
     with torch.no_grad():
         got = tmod.train()(torch.from_numpy(xs))
@@ -184,7 +192,7 @@ def test_attention_frozen_batch_norm_ignores_train_mode(name):
     the port in train mode gives JAX's output and moves no statistic."""
     jmod, tmod, variables, xs, _ = _pair(name)
     before = {k: v.clone() for k, v in tmod.state_dict().items()}
-    want = jax.jit(jmod.apply)(variables, jnp.asarray(xs))
+    want = _jit(jmod.apply)(variables, jnp.asarray(xs))
     with torch.no_grad():
         got = tmod.train()(torch.from_numpy(xs))
     _assert_close(got, want, f"{name}: train output")

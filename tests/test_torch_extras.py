@@ -48,6 +48,19 @@ from pl_yolo_tpu_torch.utils.config import CONFIG_DIR, load_config
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
 
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _jax_step(make, *args, **kwargs):
+    """The JAX package's jitted step from `make`, jitted again with
+    `_jit`'s compiler options."""
+    return _jit(make(*args, **kwargs).__wrapped__)
+
+
 NUM_CLASSES, SIZE, BATCH = 3, 64, 3
 TOL = 1e-5
 MAPS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -226,7 +239,7 @@ def module_pair(request):
     jmod, tmod = make_j(), make_t()
     variables = _randomized(tmod, jmod, jnp.asarray(x), rng)
 
-    @jax.jit
+    @_jit
     def both(v, x):
         evaluated = jmod.apply(v, x, False)
         trained, mutated = jmod.apply(v, x, True, mutable=["batch_stats"])
@@ -344,8 +357,8 @@ def test_bf16_outputs_match_jax(name):
     jmod, tmod, x = _jbackbone(name)(), _backbone(name)(
         dtype=torch.bfloat16), _image(rng)
     variables = _randomized(tmod, jmod, jnp.asarray(x), rng)
-    want = jax.jit(lambda v, x: jmod.apply(v, x, False))(variables,
-                                                         jnp.asarray(x))
+    want = _jit(lambda v, x: jmod.apply(v, x, False))(variables,
+                                                      jnp.asarray(x))
     with torch.no_grad():
         got = tmod.eval()(_nchw(x))
     for i, (g, w) in enumerate(zip(_nhwc(got), want)):
@@ -438,7 +451,7 @@ def convnext():
     x = _image(np.random.default_rng(18))[:2]
     labels = _labels()
 
-    @jax.jit
+    @_jit
     def serve(v, x):
         maps = jmodel.module.apply(v, x, False)
         return maps, jmodel.loss.eval_decode(maps)
@@ -450,8 +463,8 @@ def convnext():
     tx_, _ = jax_build_optimizer(cfg["optimizer"], total_steps=TOTAL_STEPS)
     jstate = jstate_mod.TrainState.create(jax.tree.map(np.array, variables),
                                           tx_)
-    jstep = jstate_mod.make_train_step(
-        jmodel.module.apply, jmodel.loss.train_loss, donate=False)
+    jstep = _jax_step(jstate_mod.make_train_step, jmodel.module.apply,
+                      jmodel.loss.train_loss, donate=False)
     jlosses = []
     for i in range(N_STEPS):
         jstate, losses = jstep(jstate, jnp.asarray(x), jnp.asarray(labels),
@@ -485,7 +498,7 @@ def test_convnext_postprocess_matches_jax(convnext):
     preds = convnext["jdec"]
     kw = dict(conf_threshold=1e-5, iou_threshold=0.5, max_det=100,
               pre_nms_topk=256)
-    want = jax.jit(functools.partial(jnms.postprocess, **kw))(
+    want = _jit(functools.partial(jnms.postprocess, **kw))(
         jnp.asarray(preds))
     got = tnms.postprocess(torch.from_numpy(preds.copy()), device="cpu",
                            **kw)
@@ -502,7 +515,7 @@ def test_convnext_loss_and_input_gradients_match_jax(convnext):
     def jfn(outs):
         losses = loss_fn(outs, jnp.asarray(labels), use_l1=True)
         return losses["loss"], losses
-    (_, jl), jg = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+    (_, jl), jg = _jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(m) for m in maps])
     outs = [torch.from_numpy(m).requires_grad_() for m in maps]
     tl = convnext["tmodel"].loss.train_loss(outs, torch.from_numpy(labels),

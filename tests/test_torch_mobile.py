@@ -58,6 +58,19 @@ from pl_yolo_tpu_torch.utils.config import CONFIG_DIR, load_config
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
 
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _jax_step(make, *args, **kwargs):
+    """The JAX package's jitted step from `make`, jitted again with
+    `_jit`'s compiler options."""
+    return _jit(make(*args, **kwargs).__wrapped__)
+
+
 NUM_CLASSES, SIZE, BATCH = 3, 64, 3
 TOL = 1e-5
 MAPS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -247,7 +260,7 @@ def module_pair(request):
     variables = _randomized(tmod, jmod, jax.tree.map(jnp.asarray, x), rng,
                             check_tree=name not in BF16_DTYPES)
 
-    @jax.jit
+    @_jit
     def both(v, x):
         evaluated = jmod.apply(v, x, False)
         trained, mutated = jmod.apply(v, x, True, mutable=["batch_stats"])
@@ -341,7 +354,7 @@ def test_upsample_bicubic_2x_matches_jax(h, w, dtype):
     x = (rng.normal(size=(2, h, w, 6)) * 3).astype(np.float32)
     jdtype = jnp.dtype(dtype)
     xj = jnp.asarray(x).astype(jdtype)
-    want = jax.jit(jal.upsample_bicubic_2x)(xj)
+    want = _jit(jal.upsample_bicubic_2x)(xj)
     assert want.dtype == jdtype
     xt = _nchw(np.asarray(xj.astype(jnp.float32))).to(getattr(torch, dtype))
     got = upsample_bicubic_2x(xt)
@@ -353,7 +366,7 @@ def test_upsample_bicubic_2x_matches_jax(h, w, dtype):
         return
     _assert_close(got, want)
     cot = rng.normal(size=want.shape).astype(np.float32)
-    wgrad = jax.jit(jax.grad(lambda x: jnp.sum(
+    wgrad = _jit(jax.grad(lambda x: jnp.sum(
         jal.upsample_bicubic_2x(x) * cot)))(jnp.asarray(x))
     xt = _nchw(x).requires_grad_()
     (upsample_bicubic_2x(xt) * _nchw(cot)).sum().backward()
@@ -420,7 +433,7 @@ def test_bf16_outputs_match_jax(name):
     xj = jax.tree.map(jnp.asarray, x)
     variables = _randomized(tmod, jmod, xj, rng,
                             check_tree=name not in BF16_DTYPES)
-    want = jax.tree.leaves(jax.jit(lambda v, x: jmod.apply(v, x, False))(
+    want = jax.tree.leaves(_jit(lambda v, x: jmod.apply(v, x, False))(
         variables, xj))
     with torch.no_grad():
         got = tmod.eval()(_nchw(x))
@@ -493,7 +506,7 @@ def eyolox():
     x = _image(np.random.default_rng(18))[:2]
     labels = _labels()
 
-    @jax.jit
+    @_jit
     def serve(v, x):
         maps = jmodel.module.apply(v, x, False)
         return maps, jmodel.loss.eval_decode(maps)
@@ -505,8 +518,8 @@ def eyolox():
     tx, _ = jax_build_optimizer(cfg["optimizer"], total_steps=TOTAL_STEPS)
     jstate = jstate_mod.TrainState.create(jax.tree.map(np.array, variables),
                                           tx)
-    jstep = jstate_mod.make_train_step(
-        jmodel.module.apply, jmodel.loss.train_loss, donate=False)
+    jstep = _jax_step(jstate_mod.make_train_step, jmodel.module.apply,
+                      jmodel.loss.train_loss, donate=False)
     jlosses = []
     for i in range(N_STEPS):
         jstate, losses = jstep(jstate, jnp.asarray(x), jnp.asarray(labels),
@@ -539,7 +552,7 @@ def test_eyolox_postprocess_matches_jax(eyolox):
     preds = eyolox["jdec"]
     kw = dict(conf_threshold=1e-5, iou_threshold=0.5, max_det=100,
               pre_nms_topk=256)
-    want = jax.jit(functools.partial(jnms.postprocess, **kw))(
+    want = _jit(functools.partial(jnms.postprocess, **kw))(
         jnp.asarray(preds))
     got = tnms.postprocess(torch.from_numpy(preds.copy()), device="cpu",
                            **kw)
@@ -556,7 +569,7 @@ def test_eyolox_loss_and_input_gradients_match_jax(eyolox):
     def jfn(outs):
         losses = loss_fn(outs, jnp.asarray(labels), use_l1=True)
         return losses["loss"], losses
-    (_, jl), jg = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+    (_, jl), jg = _jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(m) for m in maps])
     outs = [torch.from_numpy(m).requires_grad_() for m in maps]
     tl = eyolox["tmodel"].loss.train_loss(outs, torch.from_numpy(labels),

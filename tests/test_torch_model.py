@@ -10,6 +10,8 @@ NMS and `postprocess`, fed the same decoded predictions, must be equal.
 import copy
 from pathlib import Path
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,12 @@ from pl_yolo_tpu_torch.utils.config import load_config, validate_model_config
 
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
+
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 ROOT = Path(__file__).resolve().parents[1]
 MAPS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -49,18 +57,18 @@ def slice_outputs():
     cfg = _tiny_cfg()
     jmodel = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
     # jitted: eagerly, a flax init and apply compile their ops one by one
-    variables = jax.device_get(jax.jit(lambda k: jmodel.init(
+    variables = jax.device_get(_jit(lambda k: jmodel.init(
         k, input_size=(SIZE, SIZE)))(jax.random.key(0)))
     tmodel = build_model(copy.deepcopy(cfg), NUM_CLASSES, device="cpu")
     load_variables(tmodel.module, variables)
     x = np.random.default_rng(0).uniform(0, 255, (2, SIZE, SIZE, 3)
                                          ).astype(np.float32)
-    jmaps = jax.jit(lambda v, x: jmodel.module.apply(v, x, False))(
+    jmaps = _jit(lambda v, x: jmodel.module.apply(v, x, False))(
         variables, jnp.asarray(x))
     with torch.no_grad():
         tmaps = tmodel.module(torch.from_numpy(x))
     return dict(jmaps=[np.asarray(m) for m in jmaps], tmaps=tmaps,
-                jdec=np.asarray(jax.jit(jmodel.loss.eval_decode)(jmaps)),
+                jdec=np.asarray(_jit(jmodel.loss.eval_decode)(jmaps)),
                 tdec=tmodel.loss.eval_decode(tmaps).numpy())
 
 

@@ -14,6 +14,8 @@ each test.
 import copy
 import types
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,12 @@ from tests.test_torch_trainer import _data_cfg, _model_cfg
 
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
+
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 
 @pytest.fixture(autouse=True)
@@ -154,7 +162,7 @@ def test_cspdarknet_train_forward_with_dropblock_matches_jax(monkeypatch):
         out, mutated = jmod.apply(v, x, True, mutable=["batch_stats"],
                                   rngs={"dropout": jax.random.key(5)})
         return out, mutated, list(drawn)
-    want, mutated, seeds = jax.jit(forward)(variables, jnp.asarray(x))
+    want, mutated, seeds = _jit(forward)(variables, jnp.asarray(x))
     seeds = [np.asarray(s, np.float32) for s in seeds]
     assert len(seeds) == 4 and all(s.any() for s in seeds)
 
@@ -296,7 +304,7 @@ def test_remat_forward_matches_jax_remat():
     assert jb.get_remat()
     variables = bridge.state_dict_to_variables(tmodel.module.state_dict())
     images, _ = _batch()
-    want, mutated = jax.block_until_ready(jax.jit(
+    want, mutated = jax.block_until_ready(_jit(
         lambda v, x: jmodel.module.apply(v, x, True, mutable=["batch_stats"]))(
         variables, jnp.asarray(images)))
     got = tmodel.module.train()(torch.from_numpy(images))
@@ -523,7 +531,7 @@ def test_general_gather_augment_matches_jax(dtype, enable, out_s2d):
     assert bool((draws.affine[:, 0] != 0).all())
     images, labels = _aug_batch()
     images = images.astype(np.uint8)
-    want_img, want_lab = jax.jit(
+    want_img, want_lab = _jit(
         ja.device_augment, static_argnames=("cfg", "out_s2d"))(
         key, jnp.asarray(images), jnp.asarray(labels), cfg=jcfg,
         enable=enable, out_s2d=out_s2d)

@@ -11,10 +11,10 @@ pipe ranks (a pipelined train step only). A child writes what
 it computed to a file; rank 0 also computes the one-process references on
 the global batch, outside any layout. The parametrised tests below assert
 on those files, so each check counts on its own. While the ranks run,
-this process trains the JAX package's ZeRO-1 step on two of the
-conftest's virtual devices and the port's one-process trainer, and one
-more child (`jax`) runs the JAX package's ZeRO-3 step and its GPipe of
-the two towers.
+this process trains the port's one-process trainer and the JAX package's
+ZeRO-1 step on two of the conftest's virtual devices, and runs its GPipe
+of the two towers and its anchor losses; one more child (`jax`) runs the
+JAX package's ZeRO-3 step.
 
 Tolerances:
   * the float64 steps (YOLOX, augmented, plain DP, ZeRO-1 and ZeRO-3 with
@@ -85,6 +85,11 @@ from pl_yolo_tpu_torch.utils.config import (  # noqa: E402
 
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
+
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 NUM_CLASSES, SIZE, BATCH = 3, 64, 4
 F64_TOL, LOSS_TOL, PIPE_TOL, SLICE_TOL = 1e-9, 2e-6, 1e-5, 5e-3
@@ -308,15 +313,12 @@ def _child(layout_name: str, rank: int, world: int, port: int, out: str,
            coco: str) -> None:
     torch.set_num_threads(1)
     if layout_name == "jax":
-        # the JAX references of the ZeRO-3 step and the pipelined towers,
-        # beside the ranks (the conftest's JAX settings, 8 virtual devices)
+        # the JAX reference of the ZeRO-3 step, beside the ranks (the
+        # conftest's JAX settings, 8 virtual devices)
         import conftest  # noqa: F401
         init = _yolox_run(0, None, slice(0, BATCH), dtype=torch.float32,
                           augment=False, steps=0)["init"]
-        torch.save({"zero3": _jax_zero_accumulate(init, 3),
-                    "towers": {name: _jax_pipelined_tower(name) for name in
-                               ("vision_transformer", "mctformer")},
-                    "anchor": _jax_anchor_losses()}, out)
+        torch.save({"zero3": _jax_zero_accumulate(init, 3)}, out)
         return
     distributed.initialize(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
                            rank=rank, world_size=world, local_world_size=world)
@@ -392,7 +394,8 @@ def _collect(procs, timeout=240) -> list[dict]:
     for proc, out in procs:
         log, _ = proc.communicate(timeout=timeout)
         assert proc.returncode == 0, log[-4000:]
-        results.append(torch.load(out, weights_only=False))
+        # (mapped: the tests read the tensors they compare)
+        results.append(torch.load(out, weights_only=False, mmap=True))
     return results
 
 
@@ -434,10 +437,18 @@ def _jax_zero_accumulate(init_sd, level):
                               batch_sharding(mesh_))
         labs = jax.device_put(jnp.asarray(labels.numpy()),
                               batch_sharding(mesh_))
+        # (each micro-step's state laid out as the first's: the step is
+        # lowered and compiled once, at XLA's backend optimization level
+        # 0, the same function compiled in about three quarters of the
+        # time)
+        layout = jax.tree.map(lambda x: x.sharding, state)
         losses = []
         with mesh_:
+            run = step.lower(state, imgs, labs, jax.random.key(0)).compile(
+                compiler_options=FAST_COMPILE)
             for i in range(STEPS):
-                state, out = step(state, imgs, labs, jax.random.key(i))
+                state, out = run(state, imgs, labs, jax.random.key(i))
+                state = jax.device_put(state, layout)
                 losses.append({k: float(v) for k, v in out.items()})
         return {"losses": losses,
                 "params": dict(bridge._flatten(jax.device_get(
@@ -474,8 +485,9 @@ def _jax_pipelined_tower(name):
         return sum(((m - 0.1) ** 2).mean() * (i + 1)
                    for i, m in enumerate(maps)), maps
     with use_pipeline_mesh(make_mesh(pipe=2, devices=jax.devices()[:2])):
-        (_, maps), (grads, input_grad) = jax.jit(jax.value_and_grad(
-            loss, argnums=(0, 1), has_aux=True))(variables["params"], images)
+        (_, maps), (grads, input_grad) = jax.jit(
+            jax.value_and_grad(loss, argnums=(0, 1), has_aux=True),
+            compiler_options=FAST_COMPILE)(variables["params"], images)
     convt = bridge._conv_transposes(port)
     tower = {}
     for path, g in bridge._flatten({"params": grads}).items():
@@ -509,7 +521,9 @@ def _jax_anchor_losses():
         def loss(outs, lab, fn=fns[name]):
             losses = fn(outs, lab)
             return losses["loss"], losses
-        (_, losses), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        (_, losses), grads = jax.jit(
+            jax.value_and_grad(loss, has_aux=True),
+            compiler_options=FAST_COMPILE)(
             [jnp.asarray(m, jnp.float32) for m in maps],
             jnp.asarray(labels.numpy()))
         out[name] = {"losses": {k: float(v) for k, v in losses.items()},
@@ -533,16 +547,17 @@ def runs(tmp_path_factory):
     f32_ref = _yolox_run(0, None, slice(0, BATCH), dtype=torch.float32,
                          augment=False)
     jax_ref = {1: _jax_zero_accumulate(f32_ref["init"], 1)}
-    jax_res = _collect(jax_child)[0]
-    jax_ref[3] = jax_res["zero3"]
+    jax_towers = {name: _jax_pipelined_tower(name)
+                  for name in ("vision_transformer", "mctformer")}
+    jax_anchor = _jax_anchor_losses()
+    jax_ref[3] = _collect(jax_child)[0]["zero3"]
     data_res, pipe_res = _collect(data), _collect(pipe)
     data_pipe_res = _collect(data_pipe)
     # the 2-rank fit's checkpoint, validated by one process
     one["val1_of_2"] = _validate_checkpoint(coco, tmp / "runs1v",
                                             data_res[0]["fit"]["ckpt"])
     return {"one": one, "f32_ref": f32_ref, "jax": jax_ref,
-            "jax_towers": jax_res["towers"],
-            "jax_anchor": jax_res["anchor"],
+            "jax_towers": jax_towers, "jax_anchor": jax_anchor,
             "data": data_res, "pipe": pipe_res, "data_pipe": data_pipe_res,
             "seconds": time.perf_counter() - t0}
 

@@ -1,8 +1,9 @@
 """Tensor, spatial and expert parallelism (`pl_yolo_tpu_torch/parallel/`:
 cout-sharded convs, bands of rows with halo exchanges, sharded MoE experts),
-their combinations with ZeRO, remat, DropBlock and depthwise convs, and the
-MoE FFN of the global batch under data parallelism, on the CPU over gloo,
-at narrow widths and 64 px.
+their combinations with ZeRO, remat, DropBlock and depthwise convs, the
+conv families beyond YOLOX under them (the tiny YOLOv7, YOLOv5 and e-YOLOX
+of `FAMILIES`), and the MoE FFN of the global batch under data
+parallelism, on the CPU over gloo, at narrow widths and 64 px.
 
 One 4-process spawn (`python tests/test_torch_parallel_tp_sp_ep.py ranks
 RANK 4 PORT OUT COCO`) runs every multi-rank case in turn: model 2 x
@@ -13,14 +14,18 @@ beside the data axis), data 2 x expert 2 (the tiny MoE ViT of
 `F64_LAYOUTS`: ZeRO-3 (accumulate 2, clip) over data 2 x model 2, ZeRO-1
 over data 2 x spatial 2 and over data 2 x expert 2, remat and DropBlock
 over model 2 x spatial 2, depthwise convs over data 2 x model 2, with a
-state-dict round trip of the ZeRO-3 engine; the MoE FFN on the data 2
-ranks, and the halo exchange on spatial 2 and spatial 4. A fifth child
-(`jax`) runs the JAX package's steps on `make_mesh(model=2, spatial=2)`
-and `make_mesh(data=2, expert=2)` of the conftest's virtual devices, its
+state-dict round trip of the ZeRO-3 engine; the tiny YOLOv7, YOLOv5 and
+e-YOLOX over model 2 x spatial 2 and e-YOLOX with ZeRO-3 over data 2 x
+model 2; the MoE FFN on the data 2 ranks, and the halo exchange and
+AL-PAFPN's bicubic upsampling on spatial 2 and spatial 4. A fifth child
+(`jax`) runs the JAX package's steps of `JAX_CHILD` (the narrow YOLOX
+and the tiny YOLOv7 on `make_mesh(model=2, spatial=2)`, the MoE ViT on
+`make_mesh(data=2, expert=2)` of the conftest's virtual devices), its
 `state_specs`, and its `moe_ffn` of the global batch. This process
 meanwhile computes the one-process references, fits one process, and
-runs the JAX steps on `make_mesh(data=2, model=2)` (ZeRO-3, the depthwise
-YOLOX). The parametrised tests below assert on the children's files.
+runs the JAX steps of `JAX_HERE` on `make_mesh(data=2, model=2)` (ZeRO-3,
+the depthwise YOLOX). The parametrised tests below assert on the
+children's files.
 
 Tolerances:
   * float64, the ranks against one process's run of the same config on
@@ -32,8 +37,10 @@ Tolerances:
     input gradient summed over the model group). The MoE router, whose
     logits are fp32 in both packages, to ROUTER_TOL (1e-6);
   * fp32, two steps of the 4 ranks against the JAX package's mesh steps
-    (1x2x2; 2x2 with ZeRO-3; 2x2 with the depthwise YOLOX): the bounds of
-    `tests/test_parallel_sp.py`, each loss at rtol 2e-4 and each
+    (1x2x2, the narrow YOLOX and the tiny YOLOv7, whose first conv kernel
+    that mesh step moves by half its change: that kernel is held to half
+    the ranks' change; 2x2 with ZeRO-3; 2x2 with the depthwise YOLOX):
+    the bounds of `tests/test_parallel_sp.py`, each loss at rtol 2e-4 and each
     parameter at rtol 2e-3 / atol 2e-5; and each parameter's change at
     SLICE_TOL (5e-3) of the JAX step's change (worst seen 1.8e-3);
   * the tiny MoE ViT in fp32 (un-augmented): against one process, each
@@ -43,7 +50,9 @@ Tolerances:
     change at 5e-3 of the change (the state bound of
     `tests/test_torch_train.py`);
   * the halo exchange and the MoE FFN, float64: 1e-12 of the scale (the
-    same sums on rows fetched from other ranks);
+    same sums on rows fetched from other ranks); the bicubic upsampling
+    of a band, bit for bit in bf16, and to BICUBIC_FP32_TOL (1e-6) of the
+    scale in fp32 with its input gradient;
   * the trainer, fp32: the 4-rank fit's checkpoint against the
     one-process fit's, each tensor to 5e-3 of its change; the resumed 4
     ranks gather the checkpoint back bit for bit; the ZeRO-3 engine's
@@ -79,6 +88,7 @@ from pl_yolo_tpu_torch.layers import blocks  # noqa: E402
 from pl_yolo_tpu_torch.layers.blocks import stem_input_s2d  # noqa: E402
 from pl_yolo_tpu_torch.models.backbones.vit import moe_ffn  # noqa: E402
 from pl_yolo_tpu_torch.models.detector import build_model  # noqa: E402
+from pl_yolo_tpu_torch.ops.resize import upsample_bicubic_2x  # noqa: E402
 from pl_yolo_tpu_torch.parallel import distributed, mesh  # noqa: E402
 from pl_yolo_tpu_torch.parallel import tensor  # noqa: E402
 from pl_yolo_tpu_torch.parallel.zero import DataParallel  # noqa: E402
@@ -94,6 +104,9 @@ torch.set_num_threads(1)
 
 NUM_CLASSES, SIZE, BATCH, STEPS, BASE_LR = 3, 64, 4, 2, 5e-4
 F64_TOL, HALO_TOL, FP32_RATIO_TOL = 1e-9, 1e-12, 1e-6
+# fp32 band against whole map: the sums of a band's matmuls may round
+# apart (1 ulp seen)
+BICUBIC_FP32_TOL = 1e-6
 SP_LOSS_RTOL, SP_PARAM_RTOL, SP_PARAM_ATOL = 2e-4, 2e-3, 2e-5
 MOE_LOSS_TOL, MOE_TOL, JAX_MOE_LOSS_TOL, SLICE_TOL = 1e-5, 1e-3, 1e-3, 5e-3
 # the MoE router's logits are fp32 in a float64 module, as in the JAX
@@ -117,6 +130,28 @@ VARIANTS = {
     "depthwise": {part: {"depthwise": True}
                   for part in ("backbone", "neck", "head")},
     "moe": None,
+    # the conv families beyond YOLOX (`FAMILIES`)
+    "yolov7": None, "yolov5": None, "eyolox": None,
+}
+# the conv families of ROADMAP item 12c.4 part 1 at the tiny widths of
+# their own tests (`tests/test_torch_yolov7.py`, `test_torch_anchor.py`,
+# `test_torch_mobile.py`), 3 classes, fp32: {variant: (model YAML,
+# changes)}; the YOLOv7 neck with its RepConvs
+FAMILIES = {
+    "yolov7": ("yolov7.yaml", {
+        "backbone": {"channels": [8, 16, 32, 64, 64], "depths": [1, 1, 1, 1]},
+        "neck": {"channels": [32, 64, 64], "depths": [1, 1, 1, 1],
+                 "use_repconv": True},
+        "head": {"channels": [16, 32, 64]}}),
+    "yolov5": ("yolov5_s.yaml", {
+        "backbone": {"channels": [8, 16, 32, 64, 128],
+                     "depths": [1, 1, 1, 1]},
+        "neck": {"channels": [32, 64, 128], "depths": [1, 1, 1, 1]},
+        "head": {"channels": [32, 64, 128]}}),
+    "eyolox": ("e-yolox_s.yaml", {
+        "backbone": {"channels": [8, 16, 32, 64, 128]},
+        "neck": {"channels": [32, 64, 128]},
+        "head": {"channels": [32, 64, 128]}}),
 }
 # the float64 layouts, (data, Layout keywords, ZeRO level, variant),
 # against one process's run of the variant
@@ -129,11 +164,23 @@ F64_LAYOUTS = {
     "data2_expert2_zero1": (2, {"expert": 2}, 1, "moe"),
     "model2_spatial2_remat_dropblock": (1, {"model": 2, "spatial": 2}, 0,
                                         "remat_dropblock"),
-    "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise")}
+    "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise"),
+    "yolov7_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "yolov7"),
+    "yolov5_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "yolov5"),
+    "eyolox_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "eyolox"),
+    "eyolox_data2_model2_zero3": (2, {"model": 2}, 3, "eyolox")}
 # the fp32 layouts held to the JAX package's mesh steps, un-augmented
 JAX_LAYOUTS = {"model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "base"),
                "data2_model2_zero3": (2, {"model": 2}, 3, "zero3_clip"),
-               "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise")}
+               "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise"),
+               "yolov7_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0,
+                                          "yolov7")}
+# the flax leaf of the tiny YOLOv7 that the JAX package's step on
+# make_mesh(model=2, spatial=2) moves by half its change (the first conv,
+# on the raw image; see the YOLOv7 mesh test)
+STEM_KERNEL = ("params", "backbone", "stem0", "conv", "kernel")
+# the parts of `_jax_refs` the JAX child computes, and this process
+JAX_CHILD, JAX_HERE = ("tp_sp", "yolov7", "ep"), ("combos",)
 # the halo cases: (op, ksize, stride) of the YOLOX path x (spatial width,
 # rows a band); the 13-pool on one-row bands reaches past the next band
 HALO_OPS = {"conv3": (3, 1), "conv3_s2": (3, 2), "pool5": (5, 1),
@@ -144,6 +191,16 @@ HALO_BANDS = {"s2_rows1": (2, 1), "s2_rows4": (2, 4), "s4_rows1": (4, 1),
 HALO_CASES = [(op, band) for op in sorted(HALO_OPS)
               for band in sorted(HALO_BANDS)
               if HALO_BANDS[band][1] % HALO_OPS[op][1] == 0]
+# AL-PAFPN's bicubic 2x upsampling on bands: (whole map H, W, spatial
+# width); a tall map whose bands are wider than tall (the whole map's
+# order of the two contractions, not the band's), a wide map, one-row
+# bands (the halo of 2 rows reaches past the next band, the edge weights
+# of the image's top and bottom on both)
+BICUBIC_MAPS = {"tall_s2": (4, 4, 2), "tall_s4": (8, 6, 4),
+                "wide_s2": (2, 8, 2), "rows1_s2": (2, 2, 2),
+                "rows1_s4": (4, 3, 4)}
+BICUBIC_CASES = [(m, d) for m in sorted(BICUBIC_MAPS)
+                 for d in ("bfloat16", "float32")]
 
 
 # ------------------------------------------------------------------ inputs
@@ -175,10 +232,24 @@ def _moe_cfg():
                           "warmup": 0.1}}
 
 
+def _family_cfg(variant):
+    """A conv family of `FAMILIES` at its tiny widths, in fp32, at a base
+    LR of 5e-4."""
+    name, changes = FAMILIES[variant]
+    cfg = load_config(CONFIG_DIR / "model" / name)
+    for part, value in changes.items():
+        cfg[part].update(value)
+    cfg["dtype"] = None
+    cfg["optimizer"]["learning_rate"] = BASE_LR
+    return cfg
+
+
 def _cfg(variant):
     """The model config of a variant (`VARIANTS`)."""
     if variant == "moe":
         return _moe_cfg()
+    if variant in FAMILIES:
+        return _family_cfg(variant)
     cfg = _yolox_cfg()
     for key, value in VARIANTS[variant].items():
         if isinstance(value, dict):
@@ -223,6 +294,33 @@ def _halo_input(name, band_rows, width):
     out = torch.randn(2, 6 if name.startswith("conv") else 4, h // stride,
                       8 // stride, generator=g, dtype=torch.float64)
     return x, w, out
+
+
+def _bicubic_input(name, dtype):
+    """The whole map of a bicubic case [2, 3, H, W] in `dtype` and the
+    weights of its output's test function."""
+    h, w, width = BICUBIC_MAPS[name]
+    g = torch.Generator().manual_seed(h * 100 + w * 10 + width)
+    x = torch.randn(2, 3, h, w, generator=g).to(getattr(torch, dtype))
+    return x, torch.randn(2, 3, 2 * h, 2 * w, generator=g)
+
+
+def _bicubic_run(name, dtype, layout=None):
+    """`upsample_bicubic_2x` of the whole map, or of this spatial rank's
+    band under `layout`, and (fp32) the gradient of sum(out · weights)
+    w.r.t. its input."""
+    x, ow = _bicubic_input(name, dtype)
+    if layout is not None:
+        n = x.shape[2] // layout.spatial
+        rows = slice(layout.spatial_index * n, (layout.spatial_index + 1) * n)
+        x, ow = x[:, :, rows], ow[:, :, 2 * rows.start:2 * rows.stop]
+    x = x.clone().requires_grad_(dtype == "float32")
+    with mesh.use_layout(layout):
+        y = upsample_bicubic_2x(x)
+    if dtype != "float32":
+        return {"out": y.detach()}
+    (y * ow).sum().backward()
+    return {"out": y.detach(), "grad": x.grad}
 
 
 def _halo_apply(name, x, w):
@@ -434,6 +532,7 @@ def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
         layout = layouts.setdefault(key, mesh.Layout(data, **kw))
         res[f"f64/{name}"] = _run(variant, layout, _rows(layout), zero=zero,
                                   roundtrip=name == "data2_model2_zero3")
+        del res[f"f64/{name}"]["init"]    # (one process's is the same)
         res[f"index/{name}"] = layout.index
     for name, (data, kw, zero, variant) in JAX_LAYOUTS.items():
         layout = layouts[data, tuple(sorted(kw.items()))]
@@ -449,8 +548,12 @@ def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
     ep = layouts[2, (("expert", 2),)]
     res["ep"] = _run("moe", ep, _rows(ep), dtype=torch.float32,
                      augment=False)
-    # the halo exchange: every op on every band layout
+    # the halo exchange: every op on every band layout; the bicubic
+    # upsampling on every band layout
     sp4 = mesh.Layout(1, spatial=4)
+    for name, dtype in BICUBIC_CASES:
+        res[f"bicubic/{name}/{dtype}"] = _bicubic_run(
+            name, dtype, tp_sp if BICUBIC_MAPS[name][2] == 2 else sp4)
     for op, band_name in HALO_CASES:
         width, band_rows = HALO_BANDS[band_name]
         layout = tp_sp if width == 2 else sp4
@@ -465,10 +568,68 @@ def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
 
 
 def _jax(out: str) -> None:
-    """The JAX child: the references of `_jax_refs("tp_sp", "ep")`, under
+    """The JAX child: the references of `_jax_refs(*JAX_CHILD)`, under
     the conftest's JAX settings (8 virtual devices)."""
     import conftest  # noqa: F401
-    torch.save(_jax_refs("tp_sp", "ep"), out)
+    torch.save(_jax_refs(*JAX_CHILD), out)
+
+
+def _compiled(jitted, *args):
+    """The jitted JAX function lowered for `args` and compiled at XLA's
+    backend optimization level 0: the same function, compiled in about
+    three quarters of the time at these sizes (a mesh step's losses
+    agree with level 2's to 1e-7, relative)."""
+    return jitted.lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _jax_sharded(variables, mesh_, module=None) -> list:
+    """The torch names of the params whose JAX `state_specs` on `mesh_`
+    names a mesh axis."""
+    import jax
+    from pl_yolo_tpu.parallel.mesh import state_specs
+    from pl_yolo_tpu_torch import bridge
+    convt = bridge._conv_transposes(module)
+    leaves = bridge._flatten({"params": variables["params"]})
+    specs = state_specs({"params": variables["params"]}, mesh_)
+    names = []
+    for path, spec in jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=lambda s: isinstance(
+                s, jax.sharding.PartitionSpec))[0]:
+        key = tuple(str(k.key) for k in path)
+        if any(a is not None for a in spec):
+            names.append(bridge._to_torch_key(key, leaves[key], convt)[0])
+    return sorted(names)
+
+
+def _jax_on_axis(variables, mesh_, zero, axis, module=None) -> dict:
+    """The torch names of the params, and of the EMA copy's params and BN
+    statistics, whose leaf `state_specs` of a TrainState at ZeRO level
+    `zero` shards over `axis`: {"params": [...], "ema": [...]}."""
+    import jax
+    from pl_yolo_tpu.parallel.mesh import state_specs
+    from pl_yolo_tpu.train.optim import build_optimizer as jax_optimizer
+    from pl_yolo_tpu.train.state import TrainState as JState
+    from pl_yolo_tpu_torch import bridge
+    convt = bridge._conv_transposes(module)
+    tx, _ = jax_optimizer({"name": "sgd"}, total_steps=10)
+    specs = state_specs(JState.create(variables, tx), mesh_, zero=zero)
+    out = {}
+    for part, trees in (("params", {"params": specs.params}),
+                        ("ema", {"params": specs.ema_params,
+                                 "batch_stats": specs.ema_batch_stats})):
+        names = []
+        for coll, tree in trees.items():
+            leaves = bridge._flatten({coll: variables[coll]})
+            for path, spec in jax.tree_util.tree_flatten_with_path(
+                    tree, is_leaf=lambda s: isinstance(
+                        s, jax.sharding.PartitionSpec))[0]:
+                key = (coll,) + tuple(str(k.key) for k in path)
+                if axis in tuple(spec):
+                    names.append(bridge._to_torch_key(
+                        key, leaves[key], convt)[0])
+        out[part] = sorted(names)
+    return out
 
 
 def _jax_refs(*parts: str) -> dict:
@@ -476,10 +637,11 @@ def _jax_refs(*parts: str) -> dict:
     "tp_sp", the fp32 step of the narrow YOLOX on make_mesh(model=2,
     spatial=2) with `sp_constraint`; "combos", its ZeRO-3 step (with the
     clip, `zero_constraint`) and the depthwise YOLOX's step on
-    make_mesh(data=2, model=2); "ep", the MoE ViT's step on make_mesh(
+    make_mesh(data=2, model=2); "yolov7", the tiny YOLOv7's step on
+    make_mesh(model=2, spatial=2); "ep", the MoE ViT's step on make_mesh(
     data=2, expert=2) and `moe_ffn` of the global batch; each with the
-    leaves `state_specs` shards. The JAX child computes "tp_sp" and "ep"
-    while the test process computes "combos" (no third process)."""
+    leaves `state_specs` shards. The JAX child computes some of them
+    while the test process computes the others (`_jax`)."""
     import jax
     import jax.numpy as jnp
     from pl_yolo_tpu.layers import blocks as jb
@@ -487,8 +649,7 @@ def _jax_refs(*parts: str) -> dict:
     from pl_yolo_tpu.models.detector import build_model as jax_build_model
     from pl_yolo_tpu.parallel.mesh import (batch_sharding, make_mesh,
                                            shard_batch, shard_tp,
-                                           sp_constraint, state_specs,
-                                           zero_constraint)
+                                           sp_constraint, zero_constraint)
     from pl_yolo_tpu.train.optim import build_optimizer as jax_optimizer
     from pl_yolo_tpu.train.state import TrainState as JState
     from pl_yolo_tpu.train.state import make_train_step as jax_step
@@ -497,45 +658,6 @@ def _jax_refs(*parts: str) -> dict:
     def flat(state):
         return dict(bridge._flatten(jax.device_get(
             {"params": state.params, "batch_stats": state.batch_stats})))
-
-    def sharded(variables, mesh_, module=None):
-        """The torch names of the params whose spec names a mesh axis."""
-        convt = bridge._conv_transposes(module)
-        leaves = bridge._flatten({"params": variables["params"]})
-        specs = state_specs({"params": variables["params"]}, mesh_)
-        names = []
-        for path, spec in jax.tree_util.tree_flatten_with_path(
-                specs, is_leaf=lambda s: isinstance(
-                    s, jax.sharding.PartitionSpec))[0]:
-            key = tuple(str(k.key) for k in path)
-            if any(a is not None for a in spec):
-                names.append(bridge._to_torch_key(key, leaves[key],
-                                                  convt)[0])
-        return sorted(names)
-
-    def on_axis(variables, mesh_, zero, axis, module=None):
-        """The torch names of the params, and of the EMA copy's params and
-        BN statistics, whose leaf `state_specs` of a TrainState at ZeRO
-        level `zero` shards over `axis`: {"params": [...], "ema": [...]}."""
-        convt = bridge._conv_transposes(module)
-        tx, _ = jax_optimizer({"name": "sgd"}, total_steps=10)
-        specs = state_specs(JState.create(variables, tx), mesh_, zero=zero)
-        out = {}
-        for part, trees in (("params", {"params": specs.params}),
-                            ("ema", {"params": specs.ema_params,
-                                     "batch_stats": specs.ema_batch_stats})):
-            names = []
-            for coll, tree in trees.items():
-                leaves = bridge._flatten({coll: variables[coll]})
-                for path, spec in jax.tree_util.tree_flatten_with_path(
-                        tree, is_leaf=lambda s: isinstance(
-                            s, jax.sharding.PartitionSpec))[0]:
-                    key = (coll,) + tuple(str(k.key) for k in path)
-                    if axis in tuple(spec):
-                        names.append(bridge._to_torch_key(
-                            key, leaves[key], convt)[0])
-            out[part] = sorted(names)
-        return out
 
     def mesh_steps(variant, mesh_, zero=0):
         """The fp32 step of a YOLOX variant on `mesh_` (ZeRO at `zero`,
@@ -558,11 +680,17 @@ def _jax_refs(*parts: str) -> dict:
         b = shard_batch(mesh_, {"images": jnp.asarray(images.numpy(),
                                                       jnp.float32),
                                 "labels": jnp.asarray(labels.numpy())})
+        # (each step's state laid out as the first's: the step is lowered
+        # and compiled once)
+        layout = jax.tree.map(lambda x: x.sharding, state)
         losses = []
         with mesh_:
+            run = _compiled(step, state, b["images"], b["labels"],
+                            jax.random.key(0))
             for i in range(STEPS):
-                state, lo = step(state, b["images"], b["labels"],
-                                 jax.random.key(i))
+                state, lo = run(state, b["images"], b["labels"],
+                                jax.random.key(i))
+                state = jax.device_put(state, layout)
                 losses.append({k: float(v) for k, v in lo.items()})
         return {"losses": losses, "params": flat(state)}, variables
 
@@ -573,16 +701,20 @@ def _jax_refs(*parts: str) -> dict:
         if "tp_sp" in parts:     # the narrow YOLOX on a 1 x 2 x 2 mesh
             mesh_ = make_mesh(model=2, spatial=2, devices=jax.devices()[:4])
             res["tp_sp"], variables = mesh_steps("base", mesh_)
-            res["tp_sp_specs"] = sharded(variables, mesh_)
+            res["tp_sp_specs"] = _jax_sharded(variables, mesh_)
         if "combos" in parts:    # ZeRO-3 and depthwise on data 2 x model 2
             mesh_ = make_mesh(data=2, model=2, devices=jax.devices()[:4])
             res["data2_model2_zero3"], variables = mesh_steps(
                 "zero3_clip", mesh_, zero=3)
-            res["zero3_specs"] = {axis: on_axis(variables, mesh_, 3, axis)
+            res["zero3_specs"] = {axis: _jax_on_axis(variables, mesh_, 3,
+                                                     axis)
                                   for axis in ("data", "model")}
             res["data2_model2_depthwise"], variables = mesh_steps(
                 "depthwise", mesh_)
-            res["depthwise_specs"] = sharded(variables, mesh_)
+            res["depthwise_specs"] = _jax_sharded(variables, mesh_)
+        if "yolov7" in parts:    # the tiny YOLOv7 on a 1 x 2 x 2 mesh
+            mesh_ = make_mesh(model=2, spatial=2, devices=jax.devices()[:4])
+            res["yolov7_model2_spatial2"], _ = mesh_steps("yolov7", mesh_)
         if "ep" not in parts:
             return res
         # the MoE ViT on data 2 x expert 2
@@ -591,9 +723,9 @@ def _jax_refs(*parts: str) -> dict:
                            input_size=(SIZE, SIZE)).module
         variables = bridge.state_dict_to_variables(port.state_dict(), port)
         mesh_ = make_mesh(data=2, expert=2, devices=jax.devices()[:4])
-        res["ep_specs"] = sharded(variables, mesh_, port)
-        res["ep_zero1_specs"] = {axis: on_axis(variables, mesh_, 1, axis,
-                                               port)
+        res["ep_specs"] = _jax_sharded(variables, mesh_, port)
+        res["ep_zero1_specs"] = {axis: _jax_on_axis(variables, mesh_, 1,
+                                                    axis, port)
                                  for axis in ("data", "expert")}
         model = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
         tx, _ = jax_optimizer(cfg["optimizer"], total_steps=10)
@@ -605,10 +737,13 @@ def _jax_refs(*parts: str) -> dict:
                               batch_sharding(mesh_))
         labs = jax.device_put(jnp.asarray(labels.numpy()),
                               batch_sharding(mesh_))
+        layout = jax.tree.map(lambda x: x.sharding, state)
         losses = []
         with mesh_:
+            run = _compiled(step, state, imgs, labs, jax.random.key(0))
             for i in range(STEPS):
-                state, lo = step(state, imgs, labs, jax.random.key(i))
+                state, lo = run(state, imgs, labs, jax.random.key(i))
+                state = jax.device_put(state, layout)
                 losses.append({k: float(v) for k, v in lo.items()})
         convt = bridge._conv_transposes(port)
         res["ep"] = {"losses": losses, "params": {
@@ -651,7 +786,8 @@ def _collect(procs, timeout=300) -> list[dict]:
     for proc, out in procs:
         log, _ = proc.communicate(timeout=timeout)
         assert proc.returncode == 0, log[-4000:]
-        results.append(torch.load(out, weights_only=False))
+        # (mapped: the tests read the tensors they compare)
+        results.append(torch.load(out, weights_only=False, mmap=True))
     return results
 
 
@@ -674,7 +810,8 @@ def runs(tmp_path_factory):
     one["halo"] = {(op, band): _halo_run(op, *_halo_input(
         op, HALO_BANDS[band][1], HALO_BANDS[band][0]))
         for op, band in HALO_CASES}
-    combos = _jax_refs("combos")
+    one["bicubic"] = {case: _bicubic_run(*case) for case in BICUBIC_CASES}
+    combos = _jax_refs(*JAX_HERE)
     return {"one": one, "ranks": _collect(ranks),
             "jax": {**_collect(jax_child)[0], **combos}}
 
@@ -737,7 +874,11 @@ def test_float64_steps_equal_one_process(runs, layout, part):
     2 x model 2; ZeRO-3 (accumulate 2, clip) under data 2 x model 2 and
     ZeRO-1 under data 2 x spatial 2; the tiny MoE ViT under data 2 x
     expert 2 with ZeRO-1; remat and DropBlock under model 2 x spatial 2;
-    depthwise convs under data 2 x model 2. Every rank's gathered
+    depthwise convs under data 2 x model 2; the tiny YOLOv7 (E-ELAN, the
+    YOLOv7 neck with RepConvs, the implicit head), YOLOv5 (the simple
+    head) and e-YOLOX (ECMNet, AL-PAFPN) under model 2 x spatial 2, where
+    the 64 px stride-32 level holds one row a band, and e-YOLOX under
+    data 2 x model 2 with ZeRO-3. Every rank's gathered
     parameters, BN statistics, EMA and moments equal one process's run of
     the same config on the global batch to 1e-9 of their change (the MoE
     router, fp32 in both packages, to ROUTER_TOL), and so do its losses
@@ -820,11 +961,12 @@ def test_zero3_state_dicts_round_trip_over_model_slices(runs, part):
             w.shape[0] // 2, w.shape[1] // 2) + tuple(w.shape[2:])
 
 
-def _assert_matches_jax_mesh_step(runs, layout, part):
+def _assert_matches_jax_mesh_step(runs, layout, part, halved=()):
     """The 4 ranks' fp32 run of a layout of `JAX_LAYOUTS` against the JAX
     package's mesh step: the losses of each step at SP_LOSS_RTOL, the
     parameters at SP_PARAM_RTOL / SP_PARAM_ATOL, and each parameter's
-    change since the init within SLICE_TOL of the JAX step's change."""
+    change since the init within SLICE_TOL of the JAX step's change. The
+    flax leaves `halved` are held to half the ranks' change instead."""
     from pl_yolo_tpu_torch import bridge
     want = runs["jax"]["tp_sp" if layout == "model2_spatial2" else layout]
     for rank, res in enumerate(runs["ranks"]):
@@ -838,6 +980,8 @@ def _assert_matches_jax_mesh_step(runs, layout, part):
             return {k: torch.from_numpy(np.array(v)) for k, v in dict(
                 bridge._flatten(bridge.state_dict_to_variables(sd))).items()}
         params, init = flat(got["params"]), flat(got["init"])
+        for k in halved:
+            params[k] = init[k] + 0.5 * (params[k] - init[k])
         keys = [k for k in want["params"] if k[0] == "params"]
         assert keys and set(keys) <= set(params)
         for k in keys:
@@ -882,6 +1026,50 @@ def test_zero3_and_depthwise_steps_match_the_jax_mesh_steps(runs, layout,
     _assert_matches_jax_mesh_step(runs, layout, part)
 
 
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_yolov7_model2_spatial2_step_matches_the_jax_mesh_step(runs, part):
+    """fp32, two un-augmented steps of the tiny YOLOv7 (RepConvs, the
+    implicit head's priors sliced on C and gathered) on model 2 x spatial
+    2 against the JAX package's step on make_mesh(model=2, spatial=2), at
+    the bounds of the YOLOX test above (parameters, not the BatchNorm
+    running statistics, as there). That mesh step moves the kernel of
+    E-ELAN's first conv, whose input is the raw NHWC image, by half the
+    change of the JAX package's own single-device step and of its
+    make_mesh(model=2) and make_mesh(spatial=2) steps (0.50003 of it by
+    least squares, every other leaf within 1.4e-2 of its change; ROADMAP,
+    "Known semantic traps"): that kernel is held to half the ranks'
+    change, which the float64 test holds to one process's."""
+    _assert_matches_jax_mesh_step(runs, "yolov7_model2_spatial2", part,
+                                  halved=[STEM_KERNEL])
+
+
+def _port_specs(variant, num_classes=NUM_CLASSES, model=2):
+    """The names `tensor.shard_specs` shards under a model width, for the
+    variant's module (no process group: the specs depend on the shapes
+    alone), and its state dict."""
+    from types import SimpleNamespace
+    module = build_model(_cfg(variant), num_classes, device="cpu",
+                         input_size=(SIZE, SIZE)).module
+    layout = SimpleNamespace(model=model, expert=1, model_group=None,
+                             model_index=0)
+    return sorted(tensor.shard_specs(module, layout)), module
+
+
+def _jax_specs(sd, zero=None, **axes):
+    """The torch names of the leaves JAX's `state_specs` shards on
+    make_mesh(**axes) of a state dict's variables (at ZeRO level `zero`:
+    those over each axis of the params and of the EMA)."""
+    import jax
+    from pl_yolo_tpu.parallel.mesh import make_mesh
+    from pl_yolo_tpu_torch import bridge
+    mesh_ = make_mesh(**axes, devices=jax.devices()[:4])
+    variables = bridge.state_dict_to_variables(sd)
+    if zero is None:
+        return _jax_sharded(variables, mesh_)
+    return {axis: _jax_on_axis(variables, mesh_, zero, axis)
+            for axis in axes}
+
+
 def test_sharded_weights_are_the_jax_specs_leaves(runs):
     """The port's model and expert slices are the leaves the JAX package's
     `state_specs` shards: every conv kernel whose cout the model width
@@ -920,6 +1108,36 @@ def test_sharded_weights_are_the_jax_specs_leaves(runs):
     assert ez["zero_params"] == [k for k in want["data"]["ema"]
                                  if not k.endswith(("running_mean",
                                                     "running_var"))]
+    # the conv families beyond YOLOX on model 2 x spatial 2: the implicit
+    # head's priors on C (flax's last axis), its 24-wide prediction convs
+    # and multiplicative priors (3 classes), the simple head's convs, the
+    # depthwise kernels of ECMNet's sandglass blocks
+    for variant in FAMILIES:
+        got = rank0[f"f64/{variant}_model2_spatial2"]["specs"]
+        assert got == _jax_specs(runs["one"]["f64"][variant]["init"],
+                                 model=2, spatial=2), variant
+    yolov7 = rank0["f64/yolov7_model2_spatial2"]["specs"]
+    assert {"head.ia0", "head.im2", "head.conv1.weight",
+            "neck.n3_out.rbr_dense_conv.weight",
+            "neck.n3_out.rbr_1x1_conv.weight"} <= set(yolov7)
+    assert "head.conv0.weight" in rank0[
+        "f64/yolov5_model2_spatial2"]["specs"]
+    assert "backbone.stage2_block.conv3_0.conv0.conv.weight" in rank0[
+        "f64/eyolox_model2_spatial2"]["specs"]
+    # ZeRO-3 over e-YOLOX's model slices: its data parts are JAX's
+    z3 = rank0["f64/eyolox_data2_model2_zero3"]
+    want = _jax_specs(runs["one"]["f64"]["eyolox"]["init"], zero=3, data=2,
+                      model=2)
+    assert z3["specs"] == want["model"]["params"]
+    assert z3["zero_params"] == want["data"]["params"]
+    assert z3["zero_ema"] == want["data"]["ema"]
+    # COCO's 255-wide prediction convs replicate: at 2 classes the tiny
+    # YOLOv7's are 21 wide, which the model width does not divide; its
+    # additive priors still shard
+    specs, module = _port_specs("yolov7", num_classes=2)
+    assert specs == _jax_specs(module.state_dict(), model=2, spatial=2)
+    assert not {"head.conv0.weight", "head.im0"} & set(specs)
+    assert "head.ia0" in specs
 
 
 @pytest.mark.parametrize("op,band", HALO_CASES)
@@ -940,6 +1158,31 @@ def test_halo_exchange_equals_the_unsharded_op(runs, op, band):
             err = _scale(got[part] - want[part][:, :, r])
             assert err <= HALO_TOL * _scale(want[part]), (op, band, rank,
                                                           part, err)
+
+
+@pytest.mark.parametrize("name,dtype", BICUBIC_CASES)
+def test_bicubic_upsampling_of_a_band_is_the_whole_maps(runs, name, dtype):
+    """AL-PAFPN's bicubic 2x upsampling on bands of rows (spatial 2 and 4):
+    each rank's output rows are the whole map's, bit for bit in bf16 (the
+    whole map's order of the two contractions and edge weights) and to
+    fp32 rounding in fp32 (BICUBIC_FP32_TOL of the scale, with its input
+    gradient: the halo rows' gradients sent back and summed)."""
+    h, _, width = BICUBIC_MAPS[name]
+    n = h // width
+    want = runs["one"]["bicubic"][name, dtype]
+    for rank, res in enumerate(runs["ranks"]):
+        s = rank % 2 if width == 2 else rank
+        got = res[f"bicubic/{name}/{dtype}"]
+        out = want["out"][:, :, 2 * s * n:2 * (s + 1) * n]
+        if dtype == "bfloat16":
+            assert got["out"].dtype == torch.bfloat16
+            assert torch.equal(got["out"], out), (rank, name)
+            continue
+        for part, w in (("out", out),
+                        ("grad", want["grad"][:, :, s * n:(s + 1) * n])):
+            err = _scale(got[part] - w)
+            assert err <= BICUBIC_FP32_TOL * _scale(want[part]), (
+                rank, name, part, err)
 
 
 @pytest.mark.parametrize("part", ["losses", "params"])
@@ -1045,9 +1288,12 @@ def test_four_rank_fit_validates(runs):
 def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
     """The JAX trainer's messages for the axes' sizes (no process group:
     a world of one), and the combinations that name ROADMAP item 12c:
-    a pipe width with a model width, the ViT under a model width. ZeRO
+    a pipe width with a model width, the ViT, MobileNetV3, ShuffleNetV2,
+    CSPMobileNext and the extras under a model or spatial width. ZeRO
     with the model or spatial axis, depthwise convs under the model axis,
-    and remat and DropBlock under the spatial axis pass that gate."""
+    remat and DropBlock under the spatial axis, and the YOLOv7, YOLOv5
+    and e-YOLOX families under both axes, alone and with ZeRO and remat,
+    pass that gate."""
     from synthetic_coco import make_coco
     root = make_coco(tmp_path / "coco", num_images=2)
     model_cfg, data_cfg, kw = _trainer_cfgs(root, tmp_path / "runs")
@@ -1072,6 +1318,29 @@ def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
         cfg["backbone"].update(depthwise=depthwise,
                                drop_block={"rate": 0.1, "size": 7})
         with pytest.raises(ValueError, match="must divide the device count"):
+            Trainer(cfg, data_cfg, **kw)
+    for variant, parallel in (("yolov7", {"model": 2, "spatial": 2}),
+                              ("yolov5", {"model": 2, "zero": 3}),
+                              ("eyolox", {"spatial": 2, "zero": True})):
+        cfg = _cfg(variant)
+        cfg.update(parallel=parallel, remat=True)
+        with pytest.raises(ValueError, match="must divide the device count"):
+            Trainer(cfg, data_cfg, **kw)
+    for part, name in (("backbone", "mobilenetv3s"),
+                       ("backbone", "shufflenetv2"),
+                       ("backbone", "cspmobilenext"),
+                       ("backbone", "convnext"), ("neck", "none")):
+        for parallel in ({"model": 2}, {"spatial": 2}):
+            cfg = copy.deepcopy(model_cfg)
+            cfg[part] = {**cfg[part], "name": name}
+            cfg["parallel"] = parallel
+            with pytest.raises(NotImplementedError,
+                               match=f"{part} '{name}'.*item 12c"):
+                Trainer(cfg, data_cfg, **kw)
+    for variant in FAMILIES:
+        cfg = _cfg(variant)
+        cfg["parallel"] = {"model": 2, "pipeline": 2}
+        with pytest.raises(NotImplementedError, match="`pipeline`.*12c"):
             Trainer(cfg, data_cfg, **kw)
     model_cfg["parallel"] = {"model": 2, "pipeline": 2}
     with pytest.raises(NotImplementedError, match="`pipeline`.*item 12c"):
@@ -1155,6 +1424,37 @@ def test_spec_rules_follow_the_jax_ones():
     assert mesh.zero_spec("ema", (2, 2, 8, 16), 2, 1, taken=1) == 0
     assert mesh.zero_spec("ema", (3, 2, 8, 16), 2, 1, taken=1) == 2
     assert mesh.zero_spec("opt_state", (32,), 4, 0) is None
+
+
+def test_gathered_priors_shard_on_c_and_other_free_leaves_raise():
+    """A 4-D parameter that is no conv kernel shards along the torch dim
+    of its flax leaf's last axis: the implicit head's [1, C, 1, 1] priors
+    on C (dim 1, where the model width divides C; `GATHERED_DIM`), used
+    through `tensor.whole`, which is the parameter itself where it is
+    whole and raises outside a layout where it is a slice. A free 4-D
+    parameter of a module that does not gather it raises naming item 12c
+    where JAX's spec shards it, and replicates where it does not."""
+    from types import SimpleNamespace
+    from pl_yolo_tpu_torch.models.heads.implicit_head import ImplicitHead
+    layout = SimpleNamespace(model=2, expert=1, model_group=None,
+                             model_index=1)
+    head = ImplicitHead(num_classes=1, n_anchors=1, in_channels=(4, 6))
+    specs = tensor.shard_specs(head, layout)
+    assert {k: spec.dim for k, spec in specs.items()} == {
+        "ia0": 1, "ia1": 1, "im0": 1, "im1": 1, "conv0.weight": 0,
+        "conv1.weight": 0}
+    ia = torch.zeros(1, 4, 1, 1)
+    assert tensor.whole(ia, 1, 4) is ia
+    with pytest.raises(RuntimeError, match="inside a train step's layout"):
+        tensor.whole(specs["ia0"].narrow(ia), 1, 4)
+
+    class Free(torch.nn.Module):
+        def __init__(self, g):
+            super().__init__()
+            self.weight = torch.nn.Parameter(torch.zeros(1, 1, 1, g))
+    assert tensor.shard_specs(Free(3), layout) == {}
+    with pytest.raises(NotImplementedError, match="weight.*item 12c"):
+        tensor.shard_specs(Free(4), layout)
 
 
 def test_grouped_conv_slices_hold_whole_groups():

@@ -10,6 +10,8 @@ order, so equality is to fp32 rounding, not bit for bit.
 
 import copy
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,19 @@ from tests.test_torch_blocks import _randomize
 
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
+
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _jax_step(make, *args, **kwargs):
+    """The JAX package's jitted step from `make`, jitted again with
+    `_jit`'s compiler options."""
+    return _jit(make(*args, **kwargs).__wrapped__)
+
 
 NUM_CLASSES, SIZE = 3, 64
 
@@ -323,12 +338,12 @@ def trained():
     images, labels = _batch()
     jmodel = jax_build_model(copy.deepcopy(cfg), NUM_CLASSES)
     # jitted: eagerly, a flax init compiles its ops one by one
-    variables = jax.device_get(jax.jit(lambda k: jmodel.init(
+    variables = jax.device_get(_jit(lambda k: jmodel.init(
         k, input_size=(SIZE, SIZE)))(jax.random.key(0)))
     tx, _ = jax_build_optimizer(cfg["optimizer"], total_steps=TOTAL_STEPS)
     jstate = jstate_mod.TrainState.create(variables, tx)
-    jstep = jstate_mod.make_train_step(
-        jmodel.module.apply, jmodel.loss.train_loss, donate=False)
+    jstep = _jax_step(jstate_mod.make_train_step, jmodel.module.apply,
+                      jmodel.loss.train_loss, donate=False)
     jlosses = []
     for i in range(N_STEPS):
         jstate, losses = jstep(jstate, jnp.asarray(images),
@@ -429,8 +444,9 @@ def test_eval_step_on_ema_weights_matches_jax(trained):
     """Decoded predictions of the EMA weights after the three steps, to
     rtol=atol=1e-3: the eval forward's own 1e-4 (see the inference slice)
     on weights that already differ as the state test allows."""
-    jeval = jstate_mod.make_eval_step(trained["jmodel"].module.apply,
-                                      trained["jmodel"].loss.eval_decode)
+    jeval = _jax_step(jstate_mod.make_eval_step,
+                      trained["jmodel"].module.apply,
+                      trained["jmodel"].loss.eval_decode)
     want = np.asarray(jeval(trained["jstate"].eval_variables,
                             jnp.asarray(trained["images"])))
     teval = make_eval_step(trained["tmodel"].loss.eval_decode)

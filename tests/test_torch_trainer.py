@@ -242,10 +242,11 @@ def test_unported_config_keys_raise_naming_their_item():
     augmentation, and the first three parts of item 12c: ZeRO with the
     model, spatial and expert axes, remat under tensor and spatial
     parallelism and DropBlock under spatial, depthwise convs under tensor
-    parallelism. What is left of item 12c raises naming it: a pipe width
-    with a model, spatial or expert width, and tensor or spatial
-    parallelism on another family than CSPDarknet, CSPPAFPN and
-    DecoupledHead."""
+    parallelism, and tensor and spatial parallelism on the YOLOv7, YOLOv5
+    and e-YOLOX families (part 1 of item 12c.4). What is left of item 12c
+    raises naming it: a pipe width with a model, spatial or expert width,
+    and tensor or spatial parallelism on the transformer backbones,
+    MobileNetV3, ShuffleNetV2, CSPMobileNext and the extras."""
     yolox = {k: _model_cfg()[k] for k in ("backbone", "neck", "head")}
     for key in ("model", "spatial", "expert"):
         check_ported({**yolox, "parallel": {key: 2}}, {})
@@ -282,6 +283,27 @@ def test_unported_config_keys_raise_naming_their_item():
         with pytest.raises(NotImplementedError, match="item 12c"):
             check_ported(cfg, {})
     check_ported({**vit, "parallel": {"expert": 2}}, {})
+    for name in ("yolov7", "yolov7_tiny", "yolov5_s", "e-yolox_s",
+                 "al_yolov7_tiny"):
+        cfg = load_config(CONFIG_DIR / "model" / f"{name}.yaml")
+        for parallel in ({"model": 2, "spatial": 2}, {"model": 2, "zero": 3},
+                         {"spatial": 2, "zero": True}):
+            check_ported({**cfg, "parallel": parallel, "remat": True}, {})
+        with pytest.raises(NotImplementedError, match="`pipeline`.*12c"):
+            check_ported({**cfg, "parallel": {"spatial": 2,
+                                               "pipeline": 2}}, {})
+    for name in ("swin_tiny", "restv2_tiny", "mctformer_small"):
+        cfg = load_config(CONFIG_DIR / "model" / f"{name}.yaml")
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            check_ported({**cfg, "parallel": {"spatial": 2}}, {})
+    for backbone in ("mobilenetv3l", "shufflenetv2", "cspmobilenext",
+                     "efficientrep", "resnet", "convnext", "ghostnet", "vgg",
+                     "mobilenext"):
+        cfg = {**yolox, "backbone": {"name": backbone}}
+        for parallel in ({"model": 2}, {"spatial": 2}):
+            with pytest.raises(NotImplementedError,
+                               match=f"backbone '{backbone}'.*12c"):
+                check_ported({**cfg, "parallel": parallel}, {})
 
 
 def _cli_files(root, tmp_path):

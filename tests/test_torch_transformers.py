@@ -60,6 +60,19 @@ from pl_yolo_tpu_torch.utils.config import CONFIG_DIR, load_config
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
 
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _jax_step(make, *args, **kwargs):
+    """The JAX package's jitted step from `make`, jitted again with
+    `_jit`'s compiler options."""
+    return _jit(make(*args, **kwargs).__wrapped__)
+
+
 NUM_CLASSES, SIZE = 3, 64
 TOL = dict(rtol=1e-5, atol=1e-5)
 MAPS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -184,8 +197,8 @@ def test_backbone_eval_outputs_match_jax(name):
     jmod, tmod = make_j(), _seeded(make_t())
     x = _images(1, size=BACKBONE_SIZE.get(name, SIZE))
     variables = _bridged(jmod, tmod, x, np.random.default_rng(2))
-    want = jax.jit(lambda v, x: jmod.apply(v, x, False))(variables,
-                                                          jnp.asarray(x))
+    want = _jit(lambda v, x: jmod.apply(v, x, False))(variables,
+                                                      jnp.asarray(x))
     with torch.no_grad():
         got = tmod(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert len(got) == len(want) and list(tmod.out_channels) == [
@@ -206,7 +219,7 @@ def test_mctformer_classify_matches_jax():
                          method=jmct.MCTformer.classify,
                          unused=("up8", "down32"))
     for kind in ("fused", "patchcam", "attention"):
-        want = jax.jit(lambda v, x, kind=kind: jmod.apply(
+        want = _jit(lambda v, x, kind=kind: jmod.apply(
             v, x, 2, kind, method=jmct.MCTformer.classify))(
             variables, jnp.asarray(x))
         with torch.no_grad():
@@ -228,7 +241,7 @@ def test_generic_transformer_layers_match_jax():
                         ttr.TransformerLayer(16, 2))):
         tmod = _seeded(tmod)
         variables = _bridged(jmod, tmod, x, np.random.default_rng(6))
-        want = jax.jit(jmod.apply)(variables, jnp.asarray(x))
+        want = _jit(jmod.apply)(variables, jnp.asarray(x))
         with torch.no_grad():
             got = tmod(torch.from_numpy(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -272,7 +285,7 @@ def test_patch_merging_matches_jax():
     x = np.random.default_rng(8).normal(size=(2, 6, 4, 8)).astype(np.float32)
     jmod, tmod = jswin.PatchMerging(8), _seeded(tswin.PatchMerging(8))
     variables = _bridged(jmod, tmod, x, np.random.default_rng(9))
-    want = jax.jit(jmod.apply)(variables, jnp.asarray(x))
+    want = _jit(jmod.apply)(variables, jnp.asarray(x))
     with torch.no_grad():
         got = tmod(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -290,7 +303,7 @@ def test_bicubic_position_embedding_matches_jax_image_resize(out):
     def jfn(p):
         y = jax.image.resize(p, (1, out, out, 6), "bicubic")
         return jnp.sum(y * cot), y
-    (_, want), wgrad = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+    (_, want), wgrad = _jit(jax.value_and_grad(jfn, has_aux=True))(
         jnp.asarray(pos))
     p = torch.from_numpy(pos).requires_grad_()
     got = tresize.resize_bicubic(p, out, out)
@@ -339,7 +352,7 @@ def test_moe_ffn_matches_jax_with_overflowing_experts(capacity):
     def jfn(p, y):
         out = jvit.moe_ffn(p, y, capacity)
         return jnp.sum(out * cot), out
-    (_, want), (wgp, wgy) = jax.jit(jax.value_and_grad(
+    (_, want), (wgp, wgy) = _jit(jax.value_and_grad(
         jfn, argnums=(0, 1), has_aux=True))(p, jnp.asarray(y))
     tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
     ty = torch.from_numpy(y).requires_grad_()
@@ -387,7 +400,7 @@ def test_swin_train_forward_with_drop_path_matches_jax(monkeypatch):
     def forward(v, x):   # jitted: the recorded draws leave as outputs
         out = jmod.apply(v, x, True, rngs={"dropout": jax.random.key(5)})
         return out, list(drawn)
-    want, keeps = jax.jit(forward)(variables, jnp.asarray(x))
+    want, keeps = _jit(forward)(variables, jnp.asarray(x))
     keeps = [np.asarray(k) for k in keeps]
     assert len(keeps) == 2 * 3  # block 0's rate is 0: no draw
     assert any(not k.all() for k in keeps) and any(k.any() for k in keeps)
@@ -525,11 +538,11 @@ def test_adamw_update_matches_optax_with_the_kernel_mask():
     convt = bridge._conv_transposes(module)
     named = dict(module.named_parameters())
     rng = np.random.default_rng(17)
-    @jax.jit
+    @_jit
     def update(grads, opt_state, p):
         updates, opt_state = tx.update(grads, opt_state, p)
         return optax.apply_updates(p, updates), opt_state
-    want, opt_state = params, jax.jit(tx.init)(params)
+    want, opt_state = params, _jit(tx.init)(params)
     for _ in range(2):
         grads = jax.tree.map(lambda p: rng.normal(0, 1, p.shape).astype(
             np.float32), params)
@@ -596,7 +609,7 @@ def swin_pair():
         variables["batch_stats"])
     bridge.load_variables(tmodel.module, variables)
     x, labels = _images(18), _labels()
-    jmaps = jax.jit(lambda v, x: jmodel.module.apply(v, x, False))(
+    jmaps = _jit(lambda v, x: jmodel.module.apply(v, x, False))(
         variables, jnp.asarray(x))
     with torch.no_grad():
         tmaps = tmodel.module(torch.from_numpy(x))
@@ -604,8 +617,8 @@ def swin_pair():
     tx, _ = jax_build_optimizer(cfg["optimizer"], total_steps=TOTAL_STEPS)
     jstate = jstate_mod.TrainState.create(jax.tree.map(np.array, variables),
                                           tx)
-    jstep = jstate_mod.make_train_step(
-        jmodel.module.apply, jmodel.loss.train_loss, donate=False)
+    jstep = _jax_step(jstate_mod.make_train_step, jmodel.module.apply,
+                      jmodel.loss.train_loss, donate=False)
     jlosses = []
     for i in range(N_STEPS):
         jstate, losses = jstep(jstate, jnp.asarray(x), jnp.asarray(labels),
@@ -640,7 +653,7 @@ def test_swin_detector_loss_and_input_gradients_match_jax(swin_pair):
     def jfn(outs):
         losses = loss_fn(outs, jnp.asarray(labels), use_l1=True)
         return losses["loss"], losses
-    (_, jl), jg = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+    (_, jl), jg = _jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(m) for m in maps])
     outs = [torch.from_numpy(m).requires_grad_() for m in maps]
     tl = swin_pair["tmodel"].loss.train_loss(outs, torch.from_numpy(labels),

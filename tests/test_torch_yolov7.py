@@ -43,6 +43,19 @@ from pl_yolo_tpu_torch.utils.fuse import FusedRepConv, fuse_repconvs_
 # one intra-op thread a test process: the suite runs in parallel workers
 torch.set_num_threads(1)
 
+# the JAX references compile at XLA's backend optimization level 0: the
+# same functions, compiled in about three quarters of the time (results
+# within an ulp or so of level 2's)
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _jax_step(make, *args, **kwargs):
+    """The JAX package's jitted step from `make`, jitted again with
+    `_jit`'s compiler options."""
+    return _jit(make(*args, **kwargs).__wrapped__)
+
+
 NUM_CLASSES, SIZE, STRIDES = 3, 64, (8, 16, 32)
 ANCHORS = jv7.yolov7_loss.__defaults__[1]  # the JAX default anchor table
 MAPS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -117,7 +130,7 @@ def model_pair(request):
         feats = m.backbone(x, False)
         neck = m.neck(feats, False)
         return feats, neck, m.head(neck, False)
-    jfeats, jneck, jmaps = jax.jit(functools.partial(
+    jfeats, jneck, jmaps = _jit(functools.partial(
         jmodel.module.apply, method=stages))(variables, jnp.asarray(x))
     tm = tmodel.module
     with torch.no_grad():
@@ -141,7 +154,7 @@ def test_eelan_neck_and_head_maps_match_jax(model_pair, stage):
 
 
 def test_eval_decode_matches_jax(model_pair):
-    jdec = np.asarray(jax.jit(model_pair["jmodel"].loss.eval_decode)(
+    jdec = np.asarray(_jit(model_pair["jmodel"].loss.eval_decode)(
         [jnp.asarray(m) for m in model_pair["jmaps"]]))
     tdec = model_pair["tmodel"].loss.eval_decode(
         [torch.from_numpy(m) for m in model_pair["tmaps"]]).numpy()
@@ -262,7 +275,7 @@ def test_candidate_slab_matches_jax():
     rng = np.random.default_rng(10)
     labels = _labels(rng)
     gb, gv = labels[..., 1:5], labels.sum(2) > 0
-    want = jax.jit(jax.vmap(lambda b, v: jv7._find_positive_candidates(
+    want = _jit(jax.vmap(lambda b, v: jv7._find_positive_candidates(
         b, v, _shapes(), STRIDES, ANCHORS)))(jnp.asarray(gb), jnp.asarray(gv))
     got = tv7._find_positive_candidates(
         torch.from_numpy(gb), torch.from_numpy(gv), _shapes(), STRIDES,
@@ -273,7 +286,7 @@ def test_candidate_slab_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@jax.jit
+@_jit
 def _jax_assign(maps, labels):
     jd = jv7.flatten_v7_outputs(maps, STRIDES, ANCHORS, NUM_CLASSES)
     return jax.vmap(lambda gb, gc, gv, fp: jv7._assign_one(
@@ -313,7 +326,7 @@ def _jax_loss_fn(kw):
         losses = jv7.yolov7_loss(outs, labels, NUM_CLASSES, STRIDES, **{
             k: dict(v) if k == "gain" else v for k, v in kw})
         return losses["loss"], losses
-    return jax.jit(jax.value_and_grad(fn, has_aux=True))
+    return _jit(jax.value_and_grad(fn, has_aux=True))
 
 
 def _jax_loss_and_grads(maps, labels, **kw):
@@ -421,8 +434,8 @@ def trained():
     variables = jax.tree.map(np.array, variables)  # not views of the module
     tx, _ = jax_build_optimizer(cfg["optimizer"], total_steps=TOTAL_STEPS)
     jstate = jstate_mod.TrainState.create(variables, tx)
-    jstep = jstate_mod.make_train_step(
-        jmodel.module.apply, jmodel.loss.train_loss, donate=False)
+    jstep = _jax_step(jstate_mod.make_train_step, jmodel.module.apply,
+                      jmodel.loss.train_loss, donate=False)
     jlosses = []
     for i in range(N_STEPS):
         jstate, losses = jstep(jstate, jnp.asarray(images),
