@@ -13,10 +13,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   1. device: the card's name and power limit from nvidia-smi;
   2. build: compile every CUDA kernel of the paths from `pl_yolo_tpu_torch/csrc`
      (four: NMS suppression, row top-k, mosaic warp, fused SimOTA
-     assignment), all `nvcc`s at once, with ptxas's registers and spills;
+     assignment), and the NMS kernel cut after its IoU pass for step 9's
+     phase split, all `nvcc`s at once, with ptxas's registers and spills;
   3. kernels: each kernel against its plain PyTorch version on the card (the
      NMS also on boxes with infinite and NaN coordinates, as an overflowing
-     decode gives them; the
+     decode gives them, and on the shapes its clusters of CTAs can get
+     wrong: K = 1, 65 and 525, B = 1, its capacity K = 3584, and K = 4096,
+     which takes the two-launch path, the only call that may; the
      row top-k also against `torch.topk`, on the rows SimOTA sends and on
      rows a lane-split pass can get wrong: ascending, descending, all
      equal, the top k in one lane's share, odd A, k = 1..16; the mosaic
@@ -64,8 +67,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      its bound, its plain version's time and the PyTorch library call's
      (the top-k on the M=50 and M=100 inputs with the L2 cold and warm, with
      its host time a call, and inside both train steps' profiler windows),
-     the phase split of the redesigned kernels (the warp with every tile
-     out of reach, the SimOTA passes with each image's candidates) and the
+     the phase split of the redesigned kernels (the NMS cluster kernel's
+     IoU pass from its copy cut after it, the warp with every tile out of
+     reach, the SimOTA passes with each image's candidates) and the
      augmentation's pool build, beside the first kernel versions' numbers,
      with the card's name and power limit;
  10. the trainer: a synthetic COCO set of 64 JPEGs (480x640, drawn
@@ -697,6 +701,19 @@ def nms_cases(torch, dev):
     boxes[:, 1::8, 3] = math.inf
     boxes[:, 2::16, 1] = math.nan
     cases.append(("non-finite coordinates", boxes, valid, IOU))
+    # the shapes a cluster of CTAs can get wrong: one box; a ragged block
+    # and a block count that is not a multiple of 8 (K=65: two blocks, six
+    # CTAs own none); the 160 px gate's candidates; one image; the cluster
+    # kernel's capacity; and one K above it, which takes the two launches
+    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import CLUSTER_MAX_K
+    for name, b, k in (("K=1", BATCH, 1), ("K=65", BATCH, 65),
+                       ("K=525, the 160 px gate's candidates", BATCH, 525),
+                       ("B=1", 1, PRE_NMS_TOPK),
+                       (f"K={CLUSTER_MAX_K}, the cluster kernel's capacity",
+                        2, CLUSTER_MAX_K),
+                       ("K=4096, the two-launch path", 2, 4096)):
+        boxes, valid = rand_boxes(b, k, 4)
+        cases.append((name, boxes, valid, IOU))
     return [(n, b.to(dev), v.to(dev), t) for n, b, v, t in cases]
 
 
@@ -1620,7 +1637,7 @@ def phase_trainer(torch, card: str, device) -> None:
         traced = {}
         for name, kernel in (("mosaic_warp", "mosaic_warp_kernel"),
                              ("topk_rows", "topk_rows_kernel"),
-                             ("nms_suppress", "nms_sweep_kernel")):
+                             ("nms_suppress", "nms_cluster_kernel")):
             traced[name] = sum(e.count for e in prof.key_averages()
                                if e.device_type == torch.autograd.DeviceType
                                .CUDA and kernel in e.key)
@@ -3609,6 +3626,7 @@ def rank_child(tag: str, rank: int, port: int, out_dir: str,
                                      launch_counts().items()}
             res[name]["wall_s"] = time.perf_counter() - t0
     res["launches"] = launch_counts()
+    res["nms_large_k"] = kernel_wrappers()["nms_suppress"].large_k_launches
     res["checks"] = path_calls_equal_plain(torch, records,
                                            f"rank {rank} of phase {phase}")
     res["staged"] = dict(collectives.STAGED)
@@ -3759,6 +3777,9 @@ def rank_kernels(ranks: list, tag: str) -> tuple[dict, dict]:
             + describe_path_checks(got["checks"]))
         if not all(got["launches"][k] for k in GATE_KERNELS):
             raise AssertionError(f"rank {r} launches {got['launches']}")
+        if got["nms_large_k"]:
+            raise AssertionError(f"rank {r}: {got['nms_large_k']} NMS calls "
+                                 f"took the two-launch path")
     return launches, errs
 
 
@@ -4591,8 +4612,9 @@ def main() -> int:
     from pl_yolo_tpu_torch.models.losses.yolox import (simota_assign,
                                                        yolox_decode)
     from pl_yolo_tpu_torch.ops.cuda import build
-    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import (nms_suppress,
-                                                         suppress_plain)
+    from pl_yolo_tpu_torch.ops.cuda.nms_suppress import (
+        CLUSTER_MAX_K as NMS_CLUSTER_MAX_K, cluster_fit as nms_cluster_fit,
+        nms_suppress, suppress_plain)
     from pl_yolo_tpu_torch.ops.cuda.mosaic_warp import mosaic_warp, warp_plain
     from pl_yolo_tpu_torch.ops.cuda.simota import (simota_fused,
                                                    simota_fused_plain)
@@ -4616,15 +4638,25 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
+    import chip_nms_ab
+    # the NMS kernel cut after its IoU pass, for the phase split of step 9
+    finish_cut = chip_nms_ab.start_cut_build(build)
     build.build(["nms_suppress", "topk_rows", "mosaic_warp", "simota_assign"])
+    nms_cut, cut_log = finish_cut()
     log(f"[build] nms_suppress, topk_rows, mosaic_warp and simota_assign "
-        f"built in {time.perf_counter() - t0:.2f} s")
+        f"(and nms_suppress cut after its IoU pass) built in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, out in build.LOGS.items():
         log(f"[ptxas] {name}: {ptxas_summary(out)}")
+    log(f"[ptxas] nms_suppress cut: {ptxas_summary(cut_log)}")
 
     # 3. kernels against their plain versions
     max_err = 0
+    log(f"[kernel] nms_suppress: 8-CTA clusters resident at once "
+        f"{nms_cluster_fit(PRE_NMS_TOPK)} at K={PRE_NMS_TOPK}, "
+        f"{nms_cluster_fit(NMS_CLUSTER_MAX_K)} at K={NMS_CLUSTER_MAX_K}")
     for name, boxes, valid, thr in nms_cases(torch, dev):
+        large_before = nms_suppress.large_k_launches
         got = nms_suppress(boxes, valid, thr)
         want = suppress_plain(boxes, valid, thr)
         torch.cuda.synchronize()
@@ -4632,8 +4664,16 @@ def main() -> int:
             raise AssertionError(
                 f"nms_suppress != plain on '{name}': "
                 f"{int((got != want).sum())} rows differ")
+        large = nms_suppress.large_k_launches - large_before
+        if large != (valid.shape[1] > NMS_CLUSTER_MAX_K):
+            raise AssertionError(f"nms_suppress on '{name}': {large} launches "
+                                 f"of the two-launch path at K="
+                                 f"{valid.shape[1]}")
         log(f"[kernel] nms_suppress == plain on {name} "
-            f"({tuple(valid.shape)}, {int(got.sum())} kept)")
+            f"({tuple(valid.shape)}, {int(got.sum())} kept, "
+            f"{'two launches' if large else 'cluster kernel'})")
+    # from here on every NMS call of this process is on a path, K <= 1024
+    nms_suppress.large_k_launches = 0
 
     def check_topk(name, x, k):
         """The kernel (through `topk_lastdim`) against its plain version and
@@ -5219,14 +5259,15 @@ def main() -> int:
 
     note("times: nms_suppress")
     main_rec = nms_record(torch, cand.nms_boxes, cand.valid)
-    _, stages = device_profile(
-        torch, lambda: nms_suppress(cand.nms_boxes, cand.valid, IOU), 20, 2)
-    def short(name):
-        found = re.search(r"[a-z_]+_kernel", name)
-        return found.group(0) if found else name[:40]
-
-    log("[profile] nms_suppress stages on the main-path input, us per call: "
-        + ", ".join(f"{short(name)} {ms * 1e3:.2f}" for name, ms in stages))
+    # one launch a call: the split into its passes is the whole kernel's
+    # device time against the copy cut after the IoU pass
+    split = chip_nms_ab.phase_split(
+        torch, chip_nms_ab.bare_call(torch, build.load("nms_suppress")),
+        chip_nms_ab.bare_call(torch, nms_cut), cand.nms_boxes, cand.valid, IOU)
+    log(f"[profile] nms_suppress stages on the main-path input, us per call: "
+        f"nms_cluster_kernel {split['whole_us']:.2f}, of it the IoU pass "
+        f"(the copy cut after it) {split['iou_us']:.2f} and the sweep (the "
+        f"rest) {split['sweep_us']:.2f}")
     syn_boxes, syn_valid = nms_cases(torch, dev)[0][1:3]
     syn_rec = nms_record(torch, syn_boxes, syn_valid)
     for label, r in (("main-path input", main_rec),
@@ -5672,6 +5713,11 @@ def main() -> int:
     topk_err = max(topk_err, combos["max_abs_err"]["topk_rows"])
     warp_err = max(warp_err, combos["max_abs_err"]["mosaic_warp"])
 
+    if nms_suppress.large_k_launches != 0:
+        raise AssertionError(f"{nms_suppress.large_k_launches} NMS calls of "
+                             f"phases 4-19 took the two-launch path")
+    log(f"[kernel] every NMS call of phases 4-19 in this process and its "
+        f"ranks took the cluster kernel, none the two-launch path")
     log(f"[smoke] total wall time {time.perf_counter() - _T0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{

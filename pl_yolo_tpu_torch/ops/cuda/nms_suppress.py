@@ -9,7 +9,11 @@ valid [B,K] bool, and returns the greedy keep mask alive [B,K] bool.
 A tensor on the CPU goes through the plain version (`suppress_plain`, the
 IoU matrix and fixpoint of `ops.nms`); a tensor on the card launches the
 kernel, on the current stream, or raises. The kernel's source note gives
-its design and bound. `nms_suppress.launches` counts kernel launches.
+its design and bound: up to `CLUSTER_MAX_K` candidates one launch of the
+cluster kernel, which keeps the IoU bitmask in shared memory; above that,
+up to `MAX_K`, the two-launch kernels with a mask scratch in device memory.
+`nms_suppress.launches` counts the calls that launched, and
+`nms_suppress.large_k_launches` those of them that took the two-launch path.
 
 `ops.nms.suppress_op` registers this wrapper as the operator
 `torch.ops.pl_yolo_tpu_torch.nms_suppress`, which a tracer records as one
@@ -19,12 +23,14 @@ node.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
 
 MAX_K = 16384  # the kernel's limit (csrc/nms_suppress.cu kMaxK)
+CLUSTER_MAX_K = 3584  # the cluster kernel's capacity (kClusterMaxK)
 
 
 def suppress_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -34,14 +40,30 @@ def suppress_plain(boxes: torch.Tensor, valid: torch.Tensor,
     return greedy_suppress(_iou_matrix(boxes), valid, iou_threshold)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("nms_suppress")
-    fn = lib.nms_suppress
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
+# nms_suppress(boxes, valid, mask, alive, B, K, threshold, stream)
+ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p)
+
+
+@functools.cache
+def _entry():
+    """The library's `nms_suppress`, its argument types set once."""
+    fn = build.load("nms_suppress").nms_suppress
+    fn.argtypes = list(ARGTYPES)
     fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def cluster_fit(k: int) -> int:
+    """How many 8-CTA clusters of the cluster kernel the current device
+    holds at once at K's shared memory (cudaOccupancyMaxActiveClusters)."""
+    fn = build.load("nms_suppress").nms_cluster_fit
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    n = fn(k)
+    if n < 0:
+        raise RuntimeError(f"nms_cluster_fit({k}) failed: cudaError {-n}")
+    return n
 
 
 def check_inputs(boxes: torch.Tensor, valid: torch.Tensor) -> None:
@@ -69,21 +91,27 @@ def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor,
     b, k = valid.shape
     if k > MAX_K:
         raise ValueError(f"nms_suppress takes K <= {MAX_K}, got {k}")
-    alive = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    dev = boxes.device
+    alive = torch.empty((b, k), dtype=torch.bool, device=dev)
     if b == 0 or k == 0:
         return alive
-    mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64,
-                       device=boxes.device)
-    lib = _library()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.nms_suppress(boxes.data_ptr(), valid.data_ptr(),
-                               mask.data_ptr(), alive.data_ptr(), b, k,
-                               float(iou_threshold), stream)
+    large_k = k > CLUSTER_MAX_K
+    mask = (torch.empty((b, k, (k + 63) // 64), dtype=torch.int64, device=dev)
+            if large_k else None)
+    args = (boxes.data_ptr(), valid.data_ptr(),
+            None if mask is None else mask.data_ptr(), alive.data_ptr(), b, k,
+            float(iou_threshold), torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = _entry()(*args)
+    else:  # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            err = _entry()(*args)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: cudaError {err}")
     nms_suppress.launches += 1
+    nms_suppress.large_k_launches += large_k
     return alive
 
 
 nms_suppress.launches = 0
+nms_suppress.large_k_launches = 0

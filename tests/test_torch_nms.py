@@ -5,6 +5,9 @@ weight bridge; and the port's independence from JAX.
 
 import ast
 import copy
+import ctypes
+import re
+import types
 from pathlib import Path
 
 import functools
@@ -22,6 +25,7 @@ from pl_yolo_tpu.ops.pallas.nms_pallas import pallas_suppress
 from pl_yolo_tpu_torch.bridge import (load_variables, state_dict_to_variables,
                                       variables_to_state_dict)
 from pl_yolo_tpu_torch.models.detector import build_model
+from pl_yolo_tpu_torch.ops.cuda import nms_suppress as nms_module
 from pl_yolo_tpu_torch.ops.cuda.nms_suppress import nms_suppress
 from pl_yolo_tpu_torch.utils.config import load_config
 
@@ -49,7 +53,8 @@ def _sorted_boxes(rng, b, k, n_classes):
     return boxes, valid
 
 
-@pytest.mark.parametrize("k", [64, 300])
+# 65: a ragged block; 525: the 160 px gate's candidate count
+@pytest.mark.parametrize("k", [64, 300, 65, 525])
 @pytest.mark.parametrize("thr", [0.5, 0.65])
 def test_suppress_plain_matches_jax(k, thr):
     boxes, valid = _sorted_boxes(np.random.default_rng(k), 2, k, 3)
@@ -65,10 +70,59 @@ def test_suppress_plain_matches_jax(k, thr):
 
 
 def test_suppress_cpu_path_counts_no_launch():
-    before = nms_suppress.launches
+    before = nms_suppress.launches, nms_suppress.large_k_launches
     boxes, valid = _sorted_boxes(np.random.default_rng(0), 1, 64, 2)
     nms_suppress(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)
-    assert nms_suppress.launches == before
+    assert (nms_suppress.launches, nms_suppress.large_k_launches) == before
+
+
+_CSRC = ROOT / "pl_yolo_tpu_torch" / "csrc"
+
+
+def test_traced_kernel_names_are_kernels():
+    """Each kernel name chip_smoke.py looks for in a profiler trace is a
+    __global__ function of the port's CUDA sources."""
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    wanted = set(re.findall(r'"([a-z_]+_kernel)"', smoke))
+    kernels = set()
+    for src in _CSRC.glob("*.cu"):
+        kernels.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+            src.read_text()))
+    assert "nms_cluster_kernel" in wanted and len(wanted) >= 3
+    assert wanted <= kernels, sorted(wanted - kernels)
+
+
+def _c_argtypes(source: str, name: str) -> list:
+    params = re.search(rf"\bint {name}\(([^)]*)\)", source).group(1)
+    types_ = []
+    for param in params.split(","):
+        if "*" in param or "cudaStream_t" in param:
+            types_.append(ctypes.c_void_p)
+        elif param.split()[0] == "int":
+            types_.append(ctypes.c_int)
+        elif param.split()[0] == "float":
+            types_.append(ctypes.c_float)
+        else:
+            raise AssertionError(f"unmapped parameter {param!r}")
+    return types_
+
+
+def test_nms_source_constants_and_signature_match_callers():
+    """The capacity of the cluster kernel and the K limit in the source are
+    the wrapper's, and the exported C function takes the argument types
+    that the wrapper and chip_nms_ab.py give it."""
+    import chip_nms_ab
+    source = (_CSRC / "nms_suppress.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", source))
+    assert int(const["kClusterMaxK"]) == nms_module.CLUSTER_MAX_K
+    assert int(const["kMaxK"]) == nms_module.MAX_K
+    assert nms_module.CLUSTER_MAX_K < nms_module.MAX_K
+    want = _c_argtypes(source, "nms_suppress")
+    assert list(nms_module.ARGTYPES) == want
+    fake = types.SimpleNamespace(nms_suppress=types.SimpleNamespace())
+    chip_nms_ab.bare_call(torch, fake)
+    assert list(fake.nms_suppress.argtypes) == want
 
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "valid_shape"])
@@ -156,7 +210,9 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_never_imports_jax():
     files = sorted((ROOT / "pl_yolo_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_topk_ab.py"]
+    chips = sorted(ROOT.glob("chip_*.py"))
+    assert {"chip_smoke.py", "chip_nms_ab.py"} <= {p.name for p in chips}
+    files += chips
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
