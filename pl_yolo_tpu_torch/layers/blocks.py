@@ -127,9 +127,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class LayerNorm2d(nn.Module):
     """flax `nn.LayerNorm` over the channels of an NCHW tensor: eps 1e-6,
-    `weight` (flax `scale`) and `bias` [C]; the statistics in fp32 as
-    mean(x²) - mean(x)² (flax's fast variance, clamped at 0), the result
-    in the input's dtype."""
+    `weight` (flax `scale`) and `bias` [C]; the statistics in fp32 (float64
+    for a float64 input, as flax promotes them) as mean(x²) - mean(x)²
+    (flax's fast variance, clamped at 0), the result in the input's
+    dtype."""
 
     def __init__(self, num_features: int, eps: float = LN_EPS):
         super().__init__()
@@ -138,7 +139,7 @@ class LayerNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=1, keepdim=True) - mean * mean,
                           min=0.0)
@@ -149,8 +150,9 @@ class LayerNorm2d(nn.Module):
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm` over the last axis (the transformer backbones'
     tokens and NHWC maps): eps 1e-6 by default, `weight` (flax `scale`) and
-    `bias`, the statistics in fp32 as mean(x²) - mean(x)² clamped at 0, as
-    `LayerNorm2d` computes them over the channels of an NCHW tensor."""
+    `bias`, the statistics in fp32 (float64 for a float64 input) as
+    mean(x²) - mean(x)² clamped at 0, as `LayerNorm2d` computes them over
+    the channels of an NCHW tensor."""
 
     def __init__(self, num_features: int, eps: float = LN_EPS):
         super().__init__()
@@ -159,7 +161,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
                           min=0.0)
@@ -171,7 +173,11 @@ class SameConv2d(nn.Conv2d):
     """A bare flax `nn.Conv` (its default padding 'SAME'): the input is
     padded so that the output has ceil(size / stride) rows and columns,
     the odd pixel of an uneven split at the bottom and right, as XLA pads
-    (a 3x3 stride-2 conv on an even map pads 0 above and 1 below)."""
+    (a 3x3 stride-2 conv on an even map pads 0 above and 1 below). On a
+    band of rows (`parallel: {spatial}`) the split is the whole map's:
+    the band takes its rows above and below as halo rows, zero beyond the
+    image; a cout-sharded weight (`parallel: {model}`) runs as
+    `parallel.tensor.conv2d` (`_conv_padded`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, bias: bool = True):
@@ -179,15 +185,25 @@ class SameConv2d(nn.Conv2d):
                          groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pads = []
-        for size, k, s in zip(reversed(x.shape[2:]),
-                              reversed(self.kernel_size),
-                              reversed(self.stride)):
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            pads += [total // 2, total - total // 2]
-        if any(pads):
-            x = F.pad(x, pads)
-        return super().forward(x)
+        sp = spatial_layout()
+        rows = x.shape[2] * (sp.spatial if sp is not None else 1)
+        (top, bottom), (left, right) = (
+            _same_pads(size, k, s) for size, k, s in zip(
+                (rows, x.shape[3]), self.kernel_size, self.stride))
+        if sp is not None:
+            x = spatial.conv_input(x, self.kernel_size[0], self.stride[0],
+                                   top, sp)
+            top = bottom = 0
+        if top or bottom or left or right:
+            x = F.pad(x, [left, right, top, bottom])
+        return _conv_padded(self, x, None, 0)
+
+
+def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
+    """XLA's 'SAME' (before, after) pads of a `size`-long axis for a
+    window k, stride s."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
 
 
 def _norms(norm: str | None, num_features: int
@@ -210,23 +226,30 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype | None
     a conv whose cout is sharded (`parallel: {model}`) runs as
     `parallel.tensor.conv2d`."""
     sp = spatial_layout() if conv.kernel_size[0] > 1 else None
-    sharded = tensor.is_sharded(conv)
-    if sp is None and not sharded:
+    if sp is None and not tensor.is_sharded(conv):
         if dtype is None:
             return conv(x)
         b = None if conv.bias is None else conv.bias.to(dtype)
         return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, conv.stride,
                         conv.padding, conv.dilation, conv.groups)
-    w, b = conv.weight, conv.bias
-    if dtype is not None:
-        x, w = x.to(dtype), w.to(dtype)
-        b = None if b is None else b.to(dtype)
     padding = conv.padding
     if sp is not None:
         x = spatial.conv_input(x, conv.kernel_size[0], conv.stride[0],
                                conv.padding[0], sp)
         padding = (0, conv.padding[1])
-    if sharded:
+    return _conv_padded(conv, x, dtype, padding)
+
+
+def _conv_padded(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype | None,
+                 padding) -> torch.Tensor:
+    """`conv`'s weight and bias on x (its halo rows already taken) with
+    `padding`, in `dtype`; as `parallel.tensor.conv2d` where the weight
+    holds a cout slice."""
+    w, b = conv.weight, conv.bias
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+        b = None if b is None else b.to(dtype)
+    if tensor.is_sharded(conv):
         return tensor.conv2d(x, w, b, conv.stride, padding, conv.dilation,
                              conv.groups, model_layout())
     return F.conv2d(x, w, b, conv.stride, padding, conv.dilation,
@@ -466,10 +489,28 @@ def maybe_checkpoint(layer: nn.Module, x: torch.Tensor, remat: bool
 def max_pool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:
     """Stride-1 max pool with SAME padding (-inf pad), NCHW; on a band of
     rows (`parallel: {spatial}`) with its halo rows."""
+    return max_pool(x, ksize, 1, ksize // 2)
+
+
+def max_pool(x: torch.Tensor, ksize: int, stride: int, pad: int
+             ) -> torch.Tensor:
+    """`F.max_pool2d(x, ksize, stride, pad)` (-inf pad), NCHW; on a band
+    of rows (`parallel: {spatial}`) with the halo rows its window
+    reaches."""
     sp = spatial_layout()
     if sp is not None:
-        return spatial.max_pool_same(x, ksize, sp)
-    return F.max_pool2d(x, ksize, stride=1, padding=ksize // 2)
+        return spatial.max_pool(x, ksize, stride, pad, sp)
+    return F.max_pool2d(x, ksize, stride, pad)
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """A squeeze-excite's mean over the rows and columns of NCHW x,
+    [B, C, 1, 1]; on a band of rows (`parallel: {spatial}`) the whole
+    map's mean on every spatial rank (`parallel.spatial.band_mean`)."""
+    sp = spatial_layout()
+    if sp is not None:
+        return spatial.band_mean(x, sp)
+    return x.mean((2, 3), keepdim=True)
 
 
 class SPPBottleneck(nn.Module):

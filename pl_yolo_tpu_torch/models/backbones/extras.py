@@ -22,8 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...layers.blocks import (ConvBlock, LayerNorm, LayerNorm2d, SameConv2d,
-                              max_pool_same)
+                              apply_conv, max_pool, max_pool_same,
+                              spatial_mean)
 from ..necks.yolov7_neck import RepConv
+from .eelan import max_pool_stride2
 from .mobile import SandglassBlock
 
 _STAGES = ("stage1", "stage2", "stage3", "stage4")
@@ -142,7 +144,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         feats = {}
-        x = F.max_pool2d(self.stem(x), 3, 2, 1)
+        x = max_pool(self.stem(x), 3, 2, 1)
         feats["stem"] = x
         for i in range(4):
             for j in range(self.depths[i]):
@@ -293,8 +295,8 @@ class GhostBottleneck(nn.Module):
         if self.use_se:
             # flax promotes a bf16 input and fp32 params to fp32
             dtype = torch.promote_types(y.dtype, self.se_fc1.weight.dtype)
-            s = y.mean((2, 3), keepdim=True).to(dtype)
-            s = self.se_fc2(F.relu(self.se_fc1(s)))
+            s = spatial_mean(y).to(dtype)
+            s = apply_conv(self.se_fc2, F.relu(apply_conv(self.se_fc1, s)))
             y = y * torch.clamp(s * 0.2 + 0.5, 0.0, 1.0)
         y = self.ghost2(y)
         if self.identity:
@@ -367,12 +369,12 @@ class VGG(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         feats = {}
-        x = F.max_pool2d(self.stem_c2(self.stem_c1(x)), 2, 2)
+        x = max_pool_stride2(self.stem_c2(self.stem_c1(x)))
         feats["stem"] = x
         for i in range(4):
             x = getattr(self, f"stage{i+1}_c2")(
                 getattr(self, f"stage{i+1}_c1")(x))
-            x = F.max_pool2d(x, 2, 2)
+            x = max_pool_stride2(x)
             feats[f"stage{i+1}"] = x
         return _pick(feats, self.outputs)
 

@@ -16,7 +16,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ...layers.blocks import ConvBlock, Focus, SPPBottleneck, get_activation
+from ...layers.blocks import (ConvBlock, Focus, SPPBottleneck, get_activation,
+                              spatial_mean)
 
 
 class SandglassBlock(nn.Module):
@@ -166,9 +167,12 @@ class ECMNet(_StagedBackbone):
 # ------------------------------------------------------------- MobileNetV3
 
 class SEModule(nn.Module):
-    """Squeeze-excite with a hard-sigmoid gate: the spatial mean through two
-    1x1 ConvBlocks (bn + relu, bn + hsigmoid), times the input. The
-    BatchNorms see a [B, C, 1, 1] map: in train mode, B values a channel."""
+    """Squeeze-excite with a hard-sigmoid gate: the spatial mean (on a band
+    of rows, the whole map's: `blocks.spatial_mean`) through two 1x1
+    ConvBlocks (bn + relu, bn + hsigmoid), times the input. The
+    BatchNorms see a [B, C, 1, 1] map: in train mode, B values a channel
+    (under `parallel: {spatial: S}` every spatial rank holds it whole, and
+    the global BN counts each row S times: the same biased statistics)."""
 
     def __init__(self, channels: int, reduction: int = 4,
                  dtype: torch.dtype | None = None):
@@ -179,7 +183,7 @@ class SEModule(nn.Module):
                              act="hsigmoid", dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.fc2(self.fc1(x.mean((2, 3), keepdim=True)))
+        return x * self.fc2(self.fc1(spatial_mean(x)))
 
 
 class MNV3Block(nn.Module):

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers.blocks import ConvBlock
+from ...layers.blocks import ConvBlock, apply_conv, spatial_mean
 
 
 def channel_shuffle_split(x: torch.Tensor
@@ -45,8 +45,8 @@ class SELayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax promotes a bf16 input and fp32 params to fp32
         dtype = torch.promote_types(x.dtype, self.fc1.weight.dtype)
-        s = x.mean((2, 3), keepdim=True).to(dtype)
-        s = self.fc2(F.relu(self.fc1(s)))
+        s = spatial_mean(x).to(dtype)
+        s = apply_conv(self.fc2, F.relu(apply_conv(self.fc1, s)))
         return x * F.hardsigmoid(s)
 
 

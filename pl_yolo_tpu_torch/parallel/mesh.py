@@ -19,9 +19,10 @@ loss (`use_layout`), the same idiom as `use_pipeline_mesh` and
 as an argument.
 
   * `BatchNorm2d` in train mode normalises over the norm group's rows and
-    bands (`global_batch_norm`): one differentiable all-reduce of the
-    per-channel sum, sum of squares and count; flax's E[x²] - E[x]² makes
-    that exact.
+    bands (`global_batch_norm`): each rank's per-channel mean, sum of
+    squared deviations and count, gathered in one differentiable call and
+    combined exactly (Chan's parallel variance), as stable as one
+    process's two-pass variance.
   * The losses divide their partial sums by global counts (`data_sum`,
     `batch_mean`, `global_batch`, over the data group: the loss is
     replicated over the model, spatial and expert ranks): each rank's loss
@@ -185,8 +186,9 @@ def data_layout() -> Layout | None:
 
 
 def _wide(axis: str) -> Layout | None:
+    # (a layout that names no width for the axis has width 1 there)
     layout = _LAYOUT[0]
-    return (layout if layout is not None and getattr(layout, axis) > 1
+    return (layout if layout is not None and getattr(layout, axis, 1) > 1
             else None)
 
 
@@ -270,23 +272,32 @@ def global_batch_norm(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, eps: float, layout: Layout
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode BatchNorm of NCHW x over the norm group's rows and bands
-    (data x spatial): the per-channel sum, sum of squares and count
-    all-reduced in one differentiable call, mean = S/N, biased var =
-    max(Q/N - mean², 0) (flax's fast variance), y = (x -
-    mean)·rsqrt(var + eps)·weight + bias in fp32
+    (data x spatial): each rank's per-channel mean m_r, sum of squared
+    deviations from it M_r (two passes) and count n_r, gathered in one
+    differentiable call (`collectives.gather_summed`: the gradient of a
+    rank's statistics sums every rank's), combined as mean = Σ n_r·m_r / N
+    and biased var = Σ (M_r + n_r·(m_r - mean)²) / N (Chan's parallel
+    variance: the function of one process's statistics, without the
+    cancellation of E[x²] - E[x]², which rounding in fp32 turns into ~1e-3
+    of a squeeze-excite's [B, C, 1, 1] map, whose few values a channel lie
+    close together); y = (x - mean)·rsqrt(var + eps)·weight + bias in fp32
     (float64 for a float64 x), cast back to x's dtype. Returns (y, mean,
     var), the statistics detached."""
     c = x.shape[1]
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = [d for d in range(x.ndim) if d != 1]
-    count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
-    stats = collectives.all_reduce_sum(
-        torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]),
-        layout.norm_group)
-    n = stats[2 * c]
-    mean = stats[:c] / n
-    var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
     shape = (1, c) + (1,) * (x.ndim - 2)
+    # (torch's two passes, whose backward keeps no centred copy of x)
+    local_var, local_mean = torch.var_mean(xf, dims, correction=0)
+    count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+    local_m2 = local_var * count
+    every = collectives.gather_summed(
+        torch.cat([local_mean, local_m2, count]), layout.norm_group)
+    counts = every[:, 2 * c:]                          # [R, 1]
+    n = counts.sum()
+    mean = (every[:, :c] * counts).sum(0) / n
+    var = (every[:, c:2 * c]
+           + counts * (every[:, :c] - mean).square()).sum(0) / n
     scale = torch.rsqrt(var + eps) * weight.to(xf.dtype)
     y = (xf - mean.reshape(shape)) * scale.reshape(shape) \
         + bias.to(xf.dtype).reshape(shape)

@@ -8,7 +8,7 @@ the halo exchanges there).
     (s+1)·h/S) of the NHWC images (or of their space-to-depth layout, h =
     H/2). The JAX trainer's check H % (32·S) == 0 keeps every level's bands
     equal and even.
-  * `conv_input` / `max_pool_same`: a conv or a stride-1 pool fetches the
+  * `conv_input` / `max_pool`: a conv or a pool fetches the
     rows its window and stride need above and below this band (`halo`):
     `pad` rows above and `k - stride - pad` below, which is one above and
     none below for a 3x3 stride-2 pad-1 conv. At the image's true top and
@@ -19,8 +19,16 @@ the halo exchanges there).
     deep as any rank needs, in one all-gather, and picks the rows it needs
     from every rank's. The backward sends the gradients of the rows read
     back to their owners, summed (`collectives.gather_summed`).
-  * Nearest 2x upsampling, concat, 1x1 convs and space-to-depth are local
-    on a band.
+  * A strided pool (ResNet's 3x3 stride-2 pad-1 stem pool) takes its
+    halo as a conv does; a VALID pool whose window is its stride
+    (E-ELAN's and VGG's 2x2) is local on bands of even rows
+    (`models.backbones.eelan.max_pool_stride2`).
+  * `band_mean`: a squeeze-excite's mean over the whole map: the band's
+    sum all-reduced over the spatial group (not the data group) over the
+    whole map's H·W; its backward all-reduces the gradient over the
+    spatial group, since each rank's gate multiplies only its own band.
+  * Nearest 2x upsampling, concat, 1x1 convs, per-pixel norms and
+    space-to-depth are local on a band.
   * `gather_rows`: before the loss each level's head map is gathered along
     H; its backward keeps this rank's rows, unsummed (every spatial rank
     computes the same loss).
@@ -104,8 +112,24 @@ def conv_input(x: torch.Tensor, ksize: int, stride: int, pad: int, layout
     return halo(x, pad, max(ksize - stride - pad, 0), 0.0, layout)
 
 
-def max_pool_same(x: torch.Tensor, ksize: int, layout) -> torch.Tensor:
-    """Stride-1 SAME max pool of a band: -inf beyond the image."""
-    p = ksize // 2
-    return F.max_pool2d(halo(x, p, p, float("-inf"), layout), ksize,
-                        stride=1, padding=(0, p))
+def max_pool(x: torch.Tensor, ksize: int, stride: int, pad: int, layout
+             ) -> torch.Tensor:
+    """A (ksize, stride, pad) max pool of a band (the SPPs' stride-1
+    'SAME' pools, ResNet's stride-2 stem pool): the halo rows its window
+    reaches, -inf beyond the image (`pad` above, `ksize - stride - pad`
+    below), the columns padded as the pool pads them."""
+    x = halo(x, pad, max(ksize - stride - pad, 0), float("-inf"), layout)
+    return F.max_pool2d(x, ksize, stride=stride, padding=(0, pad))
+
+
+def band_mean(x: torch.Tensor, layout) -> torch.Tensor:
+    """The mean over the whole map's rows and columns of NCHW bands x [B,
+    C, hb, W], [B, C, 1, 1] on every spatial rank: the band's sum (in fp32
+    at least) all-reduced over the spatial group, over S·hb·W, in x's
+    dtype. Its backward all-reduces the gradient over the spatial group:
+    each rank's part of it comes from its own band's product."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    total = collectives.all_reduce_sum(
+        x.sum((2, 3), keepdim=True, dtype=dtype), layout.spatial_group)
+    count = layout.spatial * x.shape[2] * x.shape[3]
+    return (total / count).to(x.dtype)

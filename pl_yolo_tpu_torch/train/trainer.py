@@ -60,10 +60,15 @@ from .optim import build_optimizer
 from .state import TrainState, make_eval_step, make_train_step
 
 
-# the families whose convs, pools and resizes the tensor and spatial paths
-# cover: YOLOX's, YOLOv7's (E-ELAN, the YOLOv7 neck, the implicit head),
-# YOLOv5's simple head and e-YOLOX's (ECMNet, AL-PAFPN)
-TP_SP_FAMILIES = {"backbone": ("cspdarknet", "eelan", "ecmnet"),
+# the families whose convs, pools, resizes and squeeze-excites the tensor
+# and spatial paths cover: YOLOX's, YOLOv7's (E-ELAN, the YOLOv7 neck, the
+# implicit head), YOLOv5's simple head, e-YOLOX's (ECMNet, AL-PAFPN), and
+# the registry's other conv backbones (MobileNetV3, ShuffleNetV2,
+# CSPMobileNext and the extras)
+TP_SP_FAMILIES = {"backbone": ("cspdarknet", "eelan", "ecmnet",
+                               "mobilenetv3s", "mobilenetv3l", "shufflenetv2",
+                               "cspmobilenext", "efficientrep", "resnet",
+                               "convnext", "ghostnet", "vgg", "mobilenext"),
                   "neck": ("csppafpn", "yolov7neck", "al_pafpn"),
                   "head": ("decoupled_head", "implicit_head", "simple_head")}
 
@@ -72,28 +77,29 @@ def check_ported(model_cfg: dict, data_cfg: dict) -> None:
     """Raise on config keys whose machinery the port does not have yet:
     combinations of the parallel axes that the JAX package takes through
     GSPMD (ROADMAP queue A, item 12c): tensor and spatial parallelism
-    outside the families of `TP_SP_FAMILIES` (the transformer backbones,
-    MobileNetV3, ShuffleNetV2, CSPMobileNext and the extras), and a pipe
-    width with a model, spatial or expert width."""
+    outside the families of `TP_SP_FAMILIES` (the transformer backbones
+    and `neck: none`, item 12c.4 part 3), and a pipe width with a model,
+    spatial or expert width (item 12c.5)."""
     par = model_cfg.get("parallel", {}) or {}
     if par.get("zero") not in (None, False, True, 0, 1, 3):
         raise ValueError(f"parallel.zero={par['zero']!r}: take true or 3")
     wide = {k: int(par[k]) for k in ("model", "spatial", "expert")
             if int(par.get(k, 1)) > 1}
 
-    def refuse(what: str):
+    def refuse(what: str, item: str):
         raise NotImplementedError(
             f"parallel: {par}: {what} is not ported yet (ROADMAP queue A, "
-            "item 12c)")
+            f"item {item})")
     if wide and int(par.get("pipeline", 1)) > 1:
-        refuse(f"`pipeline` with {wide}")
+        refuse(f"`pipeline` with {wide}", "12c.5")
     tp_sp = {k: v for k, v in wide.items() if k in ("model", "spatial")}
     if tp_sp:
         for part, names in TP_SP_FAMILIES.items():
             got = (model_cfg.get(part) or {}).get("name")
             if got not in names:
                 refuse(f"{tp_sp} on {part} {got!r} (tensor and spatial "
-                       f"parallelism cover the {part}s {names})")
+                       f"parallelism cover the {part}s {names})",
+                       "12c.4 part 3")
     t_cfg = data_cfg.get("transform", {}) or {}
     check_config(AugmentConfig.from_dict(t_cfg))  # use_pallas
 

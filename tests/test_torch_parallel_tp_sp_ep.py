@@ -2,8 +2,10 @@
 cout-sharded convs, bands of rows with halo exchanges, sharded MoE experts),
 their combinations with ZeRO, remat, DropBlock and depthwise convs, the
 conv families beyond YOLOX under them (the tiny YOLOv7, YOLOv5 and e-YOLOX
-of `FAMILIES`), and the MoE FFN of the global batch under data
-parallelism, on the CPU over gloo, at narrow widths and 64 px.
+of `FAMILIES`, and the registry's other conv backbones of `BACKBONES`:
+MobileNetV3-S/L, ShuffleNetV2, CSPMobileNext and the six extras), and the
+MoE FFN of the global batch under data parallelism, on the CPU over gloo,
+at narrow widths and 64 px.
 
 One 4-process spawn (`python tests/test_torch_parallel_tp_sp_ep.py ranks
 RANK 4 PORT OUT COCO`) runs every multi-rank case in turn: model 2 x
@@ -16,16 +18,20 @@ over data 2 x spatial 2 and over data 2 x expert 2, remat and DropBlock
 over model 2 x spatial 2, depthwise convs over data 2 x model 2, with a
 state-dict round trip of the ZeRO-3 engine; the tiny YOLOv7, YOLOv5 and
 e-YOLOX over model 2 x spatial 2 and e-YOLOX with ZeRO-3 over data 2 x
-model 2; the MoE FFN on the data 2 ranks, and the halo exchange and
-AL-PAFPN's bicubic upsampling on spatial 2 and spatial 4. A fifth child
-(`jax`) runs the JAX package's steps of `JAX_CHILD` (the narrow YOLOX
-and the tiny YOLOv7 on `make_mesh(model=2, spatial=2)`, the MoE ViT on
-`make_mesh(data=2, expert=2)` of the conftest's virtual devices), its
-`state_specs`, and its `moe_ffn` of the global batch. This process
-meanwhile computes the one-process references, fits one process, and
-runs the JAX steps of `JAX_HERE` on `make_mesh(data=2, model=2)` (ZeRO-3,
-the depthwise YOLOX). The parametrised tests below assert on the
-children's files.
+model 2; the ten backbones of `BACKBONES` over model 2 x spatial 2 and
+MobileNetV3-S also over data 2 x spatial 2; the MoE FFN on the data 2
+ranks, and the halo exchange (ResNet's strided pool and `SameConv2d`'s
+7x7 among its ops), the squeeze-excites' band mean and AL-PAFPN's
+bicubic upsampling on spatial 2 and spatial 4. A fifth child (`jax`)
+runs the JAX package's steps of `JAX_CHILD` (the narrow YOLOX, the tiny
+YOLOv7 and the tiny ConvNeXt on `make_mesh(model=2, spatial=2)`, the
+tiny MobileNetV3-S on one device, the MoE ViT on `make_mesh(data=2,
+expert=2)` of the conftest's virtual devices), its `state_specs`, and
+its `moe_ffn` of the global batch. This process meanwhile computes the
+one-process references, fits one process, and runs the JAX steps of
+`JAX_HERE` on `make_mesh(data=2, model=2)` (ZeRO-3, the depthwise YOLOX)
+and the tiny MobileNetV3-S's on `make_mesh(model=2, spatial=2)`. The
+parametrised tests below assert on the children's files.
 
 Tolerances:
   * float64, the ranks against one process's run of the same config on
@@ -37,20 +43,25 @@ Tolerances:
     input gradient summed over the model group). The MoE router, whose
     logits are fp32 in both packages, to ROUTER_TOL (1e-6);
   * fp32, two steps of the 4 ranks against the JAX package's mesh steps
-    (1x2x2, the narrow YOLOX and the tiny YOLOv7, whose first conv kernel
-    that mesh step moves by half its change: that kernel is held to half
-    the ranks' change; 2x2 with ZeRO-3; 2x2 with the depthwise YOLOX):
+    (1x2x2, the narrow YOLOX, and the tiny YOLOv7, MobileNetV3-S and
+    ConvNeXt, whose first conv's kernel (ConvNeXt: bias) that mesh step
+    moves by half its change: that leaf is held to half the ranks'
+    change; 2x2 with ZeRO-3; 2x2 with the depthwise YOLOX):
     the bounds of `tests/test_parallel_sp.py`, each loss at rtol 2e-4 and each
     parameter at rtol 2e-3 / atol 2e-5; and each parameter's change at
-    SLICE_TOL (5e-3) of the JAX step's change (worst seen 1.8e-3);
+    SLICE_TOL (5e-3) of the JAX step's change (worst seen 1.8e-3), under
+    a tenth of MobileNetV3-S's leaves to the JAX package's one-device
+    step instead at the same bounds (its squeeze-excites' fp32
+    BatchNorms on 4 values a channel round apart in the two JAX steps);
   * the tiny MoE ViT in fp32 (un-augmented): against one process, each
     loss at 1e-5 relative and each parameter's change at 1e-3 of the
     change; against the JAX package's data 2 x expert 2 step, the loss at
     1e-3 relative (`tests/test_parallel_ep.py`) and each parameter's
     change at 5e-3 of the change (the state bound of
     `tests/test_torch_train.py`);
-  * the halo exchange and the MoE FFN, float64: 1e-12 of the scale (the
-    same sums on rows fetched from other ranks); the bicubic upsampling
+  * the halo exchange, the band mean and the MoE FFN, float64: 1e-12 of
+    the scale (the same sums on rows fetched from other ranks); the
+    bicubic upsampling
     of a band, bit for bit in bf16, and to BICUBIC_FP32_TOL (1e-6) of the
     scale in fp32 with its input gradient;
   * the trainer, fp32: the 4-rank fit's checkpoint against the
@@ -153,6 +164,48 @@ FAMILIES = {
         "neck": {"channels": [32, 64, 128]},
         "head": {"channels": [32, 64, 128]}}),
 }
+
+
+def _around(backbone: dict, widths, yaml="yolox_s.yaml") -> tuple:
+    """A registry backbone in a model YAML's place of its own (the section
+    replaced, since it names the backbone), the neck and head as wide as
+    its stage2-4 maps, the neck's depths 1."""
+    return (yaml, {"backbone": backbone,
+                   "neck": {"channels": list(widths), "depths": [1, 1, 1, 1]},
+                   "head": {"channels": list(widths)}})
+
+
+# ROADMAP item 12c.4 part 2: the registry's other conv backbones, at the
+# narrow widths of `tests/test_torch_mobile.py` and
+# `tests/test_torch_extras.py` (MobileNetV3 and GhostNet at their tables'
+# only widths), each with a CSP-PAFPN neck (AL-PAFPN for CSPMobileNext,
+# in e-YOLOX's place of ECMNet) and a decoupled head
+BACKBONES = {
+    "mobilenetv3s": _around({"name": "mobilenetv3s"}, (24, 48, 96)),
+    "mobilenetv3l": _around({"name": "mobilenetv3l"}, (40, 80, 160)),
+    "shufflenetv2": _around({"name": "shufflenetv2", "use_se": True,
+                             "channels": [24, 48, 96, 192]}, (48, 96, 192)),
+    "cspmobilenext": ("e-yolox_s.yaml", {
+        "backbone": {"name": "cspmobilenext", "depths": [1, 3, 3, 1],
+                     "channels": [8, 16, 32, 64, 128],
+                     "outputs": ["stage2", "stage3", "stage4"]},
+        "neck": {"channels": [32, 64, 128]},
+        "head": {"channels": [32, 64, 128]}}),
+    "efficientrep": _around({"name": "efficientrep", "depths": [1, 1, 1, 1],
+                             "channels": [8, 16, 32, 64, 128]},
+                            (32, 64, 128)),
+    "resnet": _around({"name": "resnet", "depths": [1, 1, 1, 1],
+                       "channels": [8, 16, 32, 64]}, (16, 32, 64)),
+    "convnext": _around({"name": "convnext", "depths": [1, 1, 1, 1],
+                         "channels": [8, 16, 32, 64]}, (16, 32, 64)),
+    "ghostnet": _around({"name": "ghostnet"}, (40, 112, 160)),
+    "vgg": _around({"name": "vgg", "channels": [8, 16, 32, 64, 64]},
+                   (32, 64, 64)),
+    "mobilenext": _around({"name": "mobilenext", "depths": [1, 1, 1, 1],
+                           "channels": [8, 16, 32, 64, 128]}, (32, 64, 128)),
+}
+FAMILIES.update(BACKBONES)
+VARIANTS.update(dict.fromkeys(BACKBONES))
 # the float64 layouts, (data, Layout keywords, ZeRO level, variant),
 # against one process's run of the variant
 F64_LAYOUTS = {
@@ -168,23 +221,37 @@ F64_LAYOUTS = {
     "yolov7_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "yolov7"),
     "yolov5_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "yolov5"),
     "eyolox_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "eyolox"),
-    "eyolox_data2_model2_zero3": (2, {"model": 2}, 3, "eyolox")}
+    "eyolox_data2_model2_zero3": (2, {"model": 2}, 3, "eyolox"),
+    # item 12c.4 part 2; MobileNetV3-S's squeeze-excites on bands also
+    # beside the data axis, whose ranks the band mean leaves out
+    **{f"{v}_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, v)
+       for v in BACKBONES},
+    "mobilenetv3s_data2_spatial2": (2, {"spatial": 2}, 0, "mobilenetv3s")}
 # the fp32 layouts held to the JAX package's mesh steps, un-augmented
 JAX_LAYOUTS = {"model2_spatial2": (1, {"model": 2, "spatial": 2}, 0, "base"),
                "data2_model2_zero3": (2, {"model": 2}, 3, "zero3_clip"),
                "data2_model2_depthwise": (2, {"model": 2}, 0, "depthwise"),
                "yolov7_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0,
-                                          "yolov7")}
+                                          "yolov7"),
+               "mobilenetv3s_model2_spatial2": (1, {"model": 2, "spatial": 2},
+                                                0, "mobilenetv3s"),
+               "convnext_model2_spatial2": (1, {"model": 2, "spatial": 2}, 0,
+                                            "convnext")}
 # the flax leaf of the tiny YOLOv7 that the JAX package's step on
 # make_mesh(model=2, spatial=2) moves by half its change (the first conv,
 # on the raw image; see the YOLOv7 mesh test)
 STEM_KERNEL = ("params", "backbone", "stem0", "conv", "kernel")
 # the parts of `_jax_refs` the JAX child computes, and this process
-JAX_CHILD, JAX_HERE = ("tp_sp", "yolov7", "ep"), ("combos",)
+JAX_CHILD, JAX_HERE = (("tp_sp", "yolov7", "ep", "convnext",
+                         "mobilenetv3s_one_device"),
+                        ("combos", "mobilenetv3s"))
 # the halo cases: (op, ksize, stride) of the YOLOX path x (spatial width,
 # rows a band); the 13-pool on one-row bands reaches past the next band
 HALO_OPS = {"conv3": (3, 1), "conv3_s2": (3, 2), "pool5": (5, 1),
-            "pool9": (9, 1), "pool13": (13, 1)}
+            "pool9": (9, 1), "pool13": (13, 1),
+            # ResNet's stem pool (pad 1, -inf) and ConvNeXt's 7x7 'SAME'
+            # depthwise-sized window (`SameConv2d`, the whole map's pads)
+            "pool3_s2": (3, 2), "conv7_same": (7, 1)}
 HALO_BANDS = {"s2_rows1": (2, 1), "s2_rows4": (2, 4), "s4_rows1": (4, 1),
               "s4_rows2": (4, 2)}
 # (a stride-2 conv takes bands of even rows)
@@ -201,6 +268,10 @@ BICUBIC_MAPS = {"tall_s2": (4, 4, 2), "tall_s4": (8, 6, 4),
                 "rows1_s4": (4, 3, 4)}
 BICUBIC_CASES = [(m, d) for m in sorted(BICUBIC_MAPS)
                  for d in ("bfloat16", "float32")]
+# the squeeze-excites' mean over the whole map on bands: (spatial width,
+# rows a band) of a [2, 4, rows·width, 5] map
+MEAN_BANDS = {"s2_rows1": (2, 1), "s2_rows3": (2, 3), "s4_rows1": (4, 1),
+              "s4_rows2": (4, 2)}
 
 
 # ------------------------------------------------------------------ inputs
@@ -238,7 +309,9 @@ def _family_cfg(variant):
     name, changes = FAMILIES[variant]
     cfg = load_config(CONFIG_DIR / "model" / name)
     for part, value in changes.items():
-        cfg[part].update(value)
+        # (a section that names its module replaces the YAML's)
+        cfg[part] = ({**value} if "name" in value
+                     else {**cfg[part], **value})
     cfg["dtype"] = None
     cfg["optimizer"]["learning_rate"] = BASE_LR
     return cfg
@@ -325,8 +398,15 @@ def _bicubic_run(name, dtype, layout=None):
 
 def _halo_apply(name, x, w):
     ksize, stride = HALO_OPS[name]
+    if name == "pool3_s2":
+        return blocks.max_pool(x, ksize, stride, 1)
     if name.startswith("pool"):
         return blocks.max_pool_same(x, ksize)
+    if name == "conv7_same":
+        conv = blocks.SameConv2d(4, 6, ksize, bias=False).double()
+        with torch.no_grad():
+            conv.weight.copy_(w)
+        return conv(x)
     conv = torch.nn.Conv2d(4, 6, ksize, stride, (ksize - 1) // 2,
                            bias=False).double()
     with torch.no_grad():
@@ -344,6 +424,31 @@ def _halo_run(name, x, w, out_weight, rows=None):
         :, :, rows.start // stride:rows.stop // stride]
     (y * ow).sum().backward()
     return {"out": y.detach(), "grad": x.grad}
+
+
+def _mean_run(name, layout=None):
+    """A squeeze-excite's gate on a [2, 4, H, 5] map of a band mean case
+    (`MEAN_BANDS`): y = x · sigmoid(W · mean(x)), the mean over the whole
+    map (`blocks.spatial_mean`), or over this spatial rank's band under
+    `layout`; the mean, y, and the gradient of sum(y · weights) w.r.t. x
+    (each rank's loss holds its band's rows: the gate's gradient is
+    partial on each)."""
+    width, band_rows = MEAN_BANDS[name]
+    g = torch.Generator().manual_seed(width * 10 + band_rows)
+    h = width * band_rows
+    x = torch.randn(2, 4, h, 5, generator=g, dtype=torch.float64)
+    w = torch.randn(4, 4, generator=g, dtype=torch.float64)
+    ow = torch.randn(2, 4, h, 5, generator=g, dtype=torch.float64)
+    if layout is not None:
+        rows = slice(layout.spatial_index * band_rows,
+                     (layout.spatial_index + 1) * band_rows)
+        x, ow = x[:, :, rows], ow[:, :, rows]
+    x = x.clone().requires_grad_()
+    with mesh.use_layout(layout):
+        s = blocks.spatial_mean(x)
+        y = x * torch.sigmoid(torch.einsum("bcij,cd->bdij", s, w))
+    (y * ow).sum().backward()
+    return {"mean": s.detach(), "out": y.detach(), "grad": x.grad}
 
 
 # -------------------------------------------------------------- the runs
@@ -367,6 +472,9 @@ def _run(variant, layout, rows, dtype=torch.float64, augment=True, zero=0,
     init = {k: v.clone() for k, v in model.module.state_dict().items()}
     engine = (DataParallel(model.module, layout, zero=zero)
               if layout is not None else None)
+    # (the slices a rank holds of ConvNeXt's init, against the bridge's)
+    held_init = ({k: v.clone() for k, v in model.module.state_dict().items()}
+                 if engine is not None and variant == "convnext" else None)
     views = engine.optimizer_views() if engine is not None else {}
     norm = views.get("global_norm") or (lambda: torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(p.grad.to(
@@ -417,6 +525,8 @@ def _run(variant, layout, rows, dtype=torch.float64, augment=True, zero=0,
                                   if e.zero is not None and e.name in init)}
         if roundtrip:
             out["roundtrip"] = _roundtrip(variant, layout, zero, dtype, out)
+        if held_init is not None:
+            out["held_init"] = held_init
     else:
         names = {id(p): n for n, p in model.module.named_parameters()}
         order = [names[id(p)] for g in optimizer.param_groups
@@ -562,6 +672,9 @@ def _ranks(rank: int, world: int, port: int, out: str, coco: str) -> None:
         x, w, ow = _halo_input(op, band_rows, width)
         with mesh.use_layout(layout):
             res[f"halo/{op}/{band_name}"] = _halo_run(op, x, w, ow, rows)
+    for name in sorted(MEAN_BANDS):
+        res[f"mean/{name}"] = _mean_run(
+            name, tp_sp if MEAN_BANDS[name][0] == 2 else sp4)
     res["fit"] = _fit(coco, Path(out).parent / "runs4")
     torch.save(res, out)
     distributed.shutdown()
@@ -637,8 +750,10 @@ def _jax_refs(*parts: str) -> dict:
     "tp_sp", the fp32 step of the narrow YOLOX on make_mesh(model=2,
     spatial=2) with `sp_constraint`; "combos", its ZeRO-3 step (with the
     clip, `zero_constraint`) and the depthwise YOLOX's step on
-    make_mesh(data=2, model=2); "yolov7", the tiny YOLOv7's step on
-    make_mesh(model=2, spatial=2); "ep", the MoE ViT's step on make_mesh(
+    make_mesh(data=2, model=2); "yolov7", "mobilenetv3s" and "convnext",
+    the tiny YOLOv7's, MobileNetV3-S's and ConvNeXt's steps on
+    make_mesh(model=2, spatial=2), "mobilenetv3s_one_device" MobileNetV3-S's
+    on one device; "ep", the MoE ViT's step on make_mesh(
     data=2, expert=2) and `moe_ffn` of the global batch; each with the
     leaves `state_specs` shards. The JAX child computes some of them
     while the test process computes the others (`_jax`)."""
@@ -712,9 +827,18 @@ def _jax_refs(*parts: str) -> dict:
             res["data2_model2_depthwise"], variables = mesh_steps(
                 "depthwise", mesh_)
             res["depthwise_specs"] = _jax_sharded(variables, mesh_)
-        if "yolov7" in parts:    # the tiny YOLOv7 on a 1 x 2 x 2 mesh
-            mesh_ = make_mesh(model=2, spatial=2, devices=jax.devices()[:4])
-            res["yolov7_model2_spatial2"], _ = mesh_steps("yolov7", mesh_)
+        # the tiny YOLOv7, MobileNetV3-S and ConvNeXt on a 1 x 2 x 2 mesh;
+        # MobileNetV3-S also on one device: the JAX package's own fp32
+        # spread between the two (`_assert_matches_jax_mesh_step`)
+        for variant in ("yolov7", "mobilenetv3s", "convnext"):
+            if variant in parts:
+                mesh_ = make_mesh(model=2, spatial=2,
+                                  devices=jax.devices()[:4])
+                res[f"{variant}_model2_spatial2"], _ = mesh_steps(variant,
+                                                                  mesh_)
+        if "mobilenetv3s_one_device" in parts:
+            res["mobilenetv3s_one_device"], _ = mesh_steps(
+                "mobilenetv3s", make_mesh(devices=jax.devices()[:1]))
         if "ep" not in parts:
             return res
         # the MoE ViT on data 2 x expert 2
@@ -811,6 +935,7 @@ def runs(tmp_path_factory):
         op, HALO_BANDS[band][1], HALO_BANDS[band][0]))
         for op, band in HALO_CASES}
     one["bicubic"] = {case: _bicubic_run(*case) for case in BICUBIC_CASES}
+    one["mean"] = {name: _mean_run(name) for name in MEAN_BANDS}
     combos = _jax_refs(*JAX_HERE)
     return {"one": one, "ranks": _collect(ranks),
             "jax": {**_collect(jax_child)[0], **combos}}
@@ -823,20 +948,37 @@ def _scale(t):
 
 
 def _assert_changes_close(got: dict, want: dict, init: dict, tol: float,
-                          what: str, fp32_keys: str | None = None):
+                          what: str, fp32_keys: str | None = None,
+                          other: dict | None = None):
     """Each tensor's |got - want| <= tol x its change since `init` (at
     least 1e-3 of the tree's largest change), plus 2 ulps of its value;
     those whose key holds `fp32_keys` (computed in fp32 whatever the
-    module's dtype) within ROUTER_TOL instead."""
-    changes = {k: _scale(want[k].double() - init[k].double()) for k in want
-               if want[k].is_floating_point()}
-    floor = 1e-3 * max(changes.values())
-    for k, change in changes.items():
+    module's dtype) within ROUTER_TOL instead. With `other`, a second
+    answer of the same function, a tensor past that bound may be held to
+    `other` the same way instead, and fewer than a tenth of them are."""
+    def bounds(ref):
+        changes = {k: _scale(ref[k].double() - init[k].double())
+                   for k in want if want[k].is_floating_point()}
+        floor = 1e-3 * max(changes.values())
+        return {k: (ROUTER_TOL if fp32_keys and fp32_keys in k else tol)
+                * max(change, floor)
+                + 2 * torch.finfo(ref[k].dtype).eps * _scale(ref[k])
+                for k, change in changes.items()}, changes
+    bound, changes = bounds(want)
+    other_bound = bounds(other)[0] if other else {}
+    held_to_other = []
+    for k in bound:
         err = _scale(got[k].double() - want[k].double())
-        ulps = 2 * torch.finfo(want[k].dtype).eps * _scale(want[k])
-        bound = ROUTER_TOL if fp32_keys and fp32_keys in k else tol
-        assert err <= bound * max(change, floor) + ulps, (
-            f"{what}: {k} differs by {err:.3e}, change {change:.3e}")
+        if err > bound[k] and other:
+            held_to_other.append(k)
+            err = _scale(got[k].double() - other[k].double())
+            assert err <= other_bound[k], (
+                f"{what}: {k} differs by {err:.3e} from either answer, "
+                f"change {changes[k]:.3e}")
+            continue
+        assert err <= bound[k], (
+            f"{what}: {k} differs by {err:.3e}, change {changes[k]:.3e}")
+    assert len(held_to_other) < 0.1 * len(bound), (what, held_to_other)
 
 
 def _assert_losses(got: list, want: list, rtol: float, what: str):
@@ -878,7 +1020,12 @@ def test_float64_steps_equal_one_process(runs, layout, part):
     YOLOv7 neck with RepConvs, the implicit head), YOLOv5 (the simple
     head) and e-YOLOX (ECMNet, AL-PAFPN) under model 2 x spatial 2, where
     the 64 px stride-32 level holds one row a band, and e-YOLOX under
-    data 2 x model 2 with ZeRO-3. Every rank's gathered
+    data 2 x model 2 with ZeRO-3; MobileNetV3-S/L, ShuffleNetV2 with its
+    SE, CSPMobileNext, EfficientRep, ResNet, ConvNeXt, GhostNet, VGG and
+    MobileNeXt under model 2 x spatial 2 (the squeeze-excites' band
+    means, the strided and VALID pools, `SameConv2d`'s 'SAME' pads, the
+    SE's bare convs), and MobileNetV3-S under data 2 x spatial 2 (the
+    band mean over the spatial ranks alone). Every rank's gathered
     parameters, BN statistics, EMA and moments equal one process's run of
     the same config on the global batch to 1e-9 of their change (the MoE
     router, fp32 in both packages, to ROUTER_TOL), and so do its losses
@@ -961,12 +1108,17 @@ def test_zero3_state_dicts_round_trip_over_model_slices(runs, part):
             w.shape[0] // 2, w.shape[1] // 2) + tuple(w.shape[2:])
 
 
-def _assert_matches_jax_mesh_step(runs, layout, part, halved=()):
+def _assert_matches_jax_mesh_step(runs, layout, part, halved=(),
+                                  spread=None):
     """The 4 ranks' fp32 run of a layout of `JAX_LAYOUTS` against the JAX
     package's mesh step: the losses of each step at SP_LOSS_RTOL, the
     parameters at SP_PARAM_RTOL / SP_PARAM_ATOL, and each parameter's
     change since the init within SLICE_TOL of the JAX step's change. The
-    flax leaves `halved` are held to half the ranks' change instead."""
+    flax leaves `halved` are held to half the ranks' change instead. With
+    `spread`, the JAX package's step of the same config on one device, a
+    leaf past those bounds may be held to that step's instead (fewer
+    than a tenth of the leaves): the JAX package's other answer of the
+    same function, whose fp32 rounding differs."""
     from pl_yolo_tpu_torch import bridge
     want = runs["jax"]["tp_sp" if layout == "model2_spatial2" else layout]
     for rank, res in enumerate(runs["ranks"]):
@@ -984,15 +1136,20 @@ def _assert_matches_jax_mesh_step(runs, layout, part, halved=()):
             params[k] = init[k] + 0.5 * (params[k] - init[k])
         keys = [k for k in want["params"] if k[0] == "params"]
         assert keys and set(keys) <= set(params)
+        def leaves(tree):
+            return {k: torch.from_numpy(np.array(tree["params"][k]))
+                    for k in keys}
+        mesh_step = leaves(want)
+        one_device = leaves(spread) if spread else None
         for k in keys:
-            np.testing.assert_allclose(params[k].numpy(),
-                                       np.asarray(want["params"][k]),
-                                       rtol=SP_PARAM_RTOL, atol=SP_PARAM_ATOL,
-                                       err_msg=f"rank {rank} {k}")
+            refs = [mesh_step[k]] + ([one_device[k]] if spread else [])
+            assert any(np.allclose(params[k].numpy(), r.numpy(),
+                                   rtol=SP_PARAM_RTOL, atol=SP_PARAM_ATOL)
+                       for r in refs), f"rank {rank} {k}"
         _assert_changes_close(
-            {k: params[k] for k in keys},
-            {k: torch.from_numpy(np.array(want["params"][k])) for k in keys},
-            {k: init[k] for k in keys}, SLICE_TOL, f"rank {rank} vs JAX")
+            {k: params[k] for k in keys}, mesh_step,
+            {k: init[k] for k in keys}, SLICE_TOL, f"rank {rank} vs JAX",
+            other=one_device)
 
 
 @pytest.mark.parametrize("part", ["losses", "params"])
@@ -1041,6 +1198,41 @@ def test_yolov7_model2_spatial2_step_matches_the_jax_mesh_step(runs, part):
     change, which the float64 test holds to one process's."""
     _assert_matches_jax_mesh_step(runs, "yolov7_model2_spatial2", part,
                                   halved=[STEM_KERNEL])
+
+
+# the flax leaves of the first conv, on the raw image, that the JAX
+# package's step on make_mesh(model=2, spatial=2) moves by half its change
+# (ROADMAP, "Known semantic traps"): MobileNetV3-S's kernel, as the tiny
+# YOLOv7's, and ConvNeXt's patchify bias (its kernel moves in full)
+HALVED = {"mobilenetv3s": [("params", "backbone", "stem", "conv", "kernel")],
+          "convnext": [("params", "backbone", "stem", "bias")]}
+
+
+@pytest.mark.parametrize("variant", sorted(HALVED))
+@pytest.mark.parametrize("part", ["losses", "params"])
+def test_backbone_model2_spatial2_steps_match_the_jax_mesh_step(runs,
+                                                               variant,
+                                                               part):
+    """fp32, two un-augmented steps of the tiny MobileNetV3-S detector
+    (the squeeze-excites' band means, its depthwise convs) and of the tiny
+    ConvNeXt (`SameConv2d` on bands, the replicated `nn.Linear` layers)
+    on model 2 x spatial 2 against the JAX package's step on make_mesh(
+    model=2, spatial=2), at the bounds of the YOLOX test above, but for
+    the first conv's leaf that mesh step moves by half (`HALVED`; the
+    float64 test holds the ranks to one process there).
+    MobileNetV3-S's squeeze-excite BatchNorms see 4 values a channel
+    (B=4), close together on noise images: flax's E[x²] - E[x]² variance
+    cancels in fp32 and amplifies each run's rounding, so that the JAX
+    package's own mesh step and its one-device step differ by up to
+    7.3e-2 of the change on 30 of the 291 leaves (1.4e-2 was the tiny
+    YOLOv7's worst): a leaf of MobileNetV3-S past the bounds of the mesh
+    step is held to the one-device step's at the same bounds instead,
+    and fewer than a tenth of them are (4 seen: stage 4's SE BatchNorm
+    scales, where the ranks, one process and JAX's one device agree)."""
+    _assert_matches_jax_mesh_step(
+        runs, f"{variant}_model2_spatial2", part, halved=HALVED[variant],
+        spread=(runs["jax"]["mobilenetv3s_one_device"]
+                if variant == "mobilenetv3s" else None))
 
 
 def _port_specs(variant, num_classes=NUM_CLASSES, model=2):
@@ -1124,6 +1316,23 @@ def test_sharded_weights_are_the_jax_specs_leaves(runs):
         "f64/yolov5_model2_spatial2"]["specs"]
     assert "backbone.stage2_block.conv3_0.conv0.conv.weight" in rank0[
         "f64/eyolox_model2_spatial2"]["specs"]
+    # the registry's other conv backbones (item 12c.4 part 2): the
+    # squeeze-excites' convs (MobileNetV3's ConvBlocks, ShuffleNetV2's and
+    # GhostNet's bare biased ones), the depthwise kernels, ConvNeXt's
+    # `SameConv2d` kernels (its `nn.Linear` layers are 2-D: replicated)
+    def specs_of(variant):
+        return set(rank0[f"f64/{variant}_model2_spatial2"]["specs"])
+    assert {"backbone.stage1_b0.dw.conv.weight",
+            "backbone.stage1_b0.se.fc1.conv.weight"} <= specs_of(
+                "mobilenetv3s")
+    assert {"backbone.stage1_b0.se.fc1.weight",
+            "backbone.stage1_b0.dw.conv.weight"} <= specs_of("shufflenetv2")
+    assert {"backbone.stage2_b0.se_fc1.weight",
+            "backbone.stage2_b0.se_fc2.weight"} <= specs_of("ghostnet")
+    convnext = specs_of("convnext")
+    assert {"backbone.stem.weight", "backbone.down1.weight",
+            "backbone.stage0_b0.dwconv.weight"} <= convnext
+    assert not {k for k in convnext if "pwconv" in k or "norm" in k}
     # ZeRO-3 over e-YOLOX's model slices: its data parts are JAX's
     z3 = rank0["f64/eyolox_data2_model2_zero3"]
     want = _jax_specs(runs["one"]["f64"]["eyolox"]["init"], zero=3, data=2,
@@ -1158,6 +1367,28 @@ def test_halo_exchange_equals_the_unsharded_op(runs, op, band):
             err = _scale(got[part] - want[part][:, :, r])
             assert err <= HALO_TOL * _scale(want[part]), (op, band, rank,
                                                           part, err)
+
+
+@pytest.mark.parametrize("band", sorted(MEAN_BANDS))
+def test_band_mean_is_the_whole_maps_mean(runs, band):
+    """The squeeze-excites' mean over the whole map on bands of rows
+    (spatial 2, beside model 2, and spatial 4; one to three rows a band):
+    every rank's mean is the whole map's, its gated rows the whole map's,
+    and its input gradient its rows of the whole map's, each rank's gate
+    gradient holding only its band's part (the mean's backward sums them
+    over the spatial group)."""
+    width, band_rows = MEAN_BANDS[band]
+    want = runs["one"]["mean"][band]
+    for rank, res in enumerate(runs["ranks"]):
+        s = rank % 2 if width == 2 else rank
+        got = res[f"mean/{band}"]
+        rows = slice(s * band_rows, (s + 1) * band_rows)
+        for part, w in (("mean", want["mean"]),
+                        ("out", want["out"][:, :, rows]),
+                        ("grad", want["grad"][:, :, rows])):
+            err = _scale(got[part] - w)
+            assert err <= HALO_TOL * _scale(want[part]), (band, rank, part,
+                                                          err)
 
 
 @pytest.mark.parametrize("name,dtype", BICUBIC_CASES)
@@ -1288,12 +1519,13 @@ def test_four_rank_fit_validates(runs):
 def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
     """The JAX trainer's messages for the axes' sizes (no process group:
     a world of one), and the combinations that name ROADMAP item 12c:
-    a pipe width with a model width, the ViT, MobileNetV3, ShuffleNetV2,
-    CSPMobileNext and the extras under a model or spatial width. ZeRO
-    with the model or spatial axis, depthwise convs under the model axis,
-    remat and DropBlock under the spatial axis, and the YOLOv7, YOLOv5
-    and e-YOLOX families under both axes, alone and with ZeRO and remat,
-    pass that gate."""
+    a pipe width with a model width (item 12c.5), the transformer
+    backbones and `neck: none` under a model or spatial width (item
+    12c.4 part 3). ZeRO with the model or spatial axis, depthwise convs
+    under the model axis, remat and DropBlock under the spatial axis, the
+    YOLOv7, YOLOv5 and e-YOLOX families under both axes, alone and with
+    ZeRO and remat, and MobileNetV3, ShuffleNetV2, CSPMobileNext and the
+    six extras under both axes with ZeRO-3, pass that gate."""
     from synthetic_coco import make_coco
     root = make_coco(tmp_path / "coco", num_images=2)
     model_cfg, data_cfg, kw = _trainer_cfgs(root, tmp_path / "runs")
@@ -1326,21 +1558,28 @@ def test_trainer_refuses_what_the_layout_cannot_take(tmp_path):
         cfg.update(parallel=parallel, remat=True)
         with pytest.raises(ValueError, match="must divide the device count"):
             Trainer(cfg, data_cfg, **kw)
-    for part, name in (("backbone", "mobilenetv3s"),
-                       ("backbone", "shufflenetv2"),
-                       ("backbone", "cspmobilenext"),
-                       ("backbone", "convnext"), ("neck", "none")):
+    # the registry's other conv backbones pass it too (item 12c.4 part
+    # 2); the transformer backbones and `neck: none` do not (part 3)
+    # (each axis alone: tests/test_torch_trainer.py's `check_ported` test)
+    for variant in BACKBONES:
+        cfg = _cfg(variant)
+        cfg["parallel"] = {"model": 2, "spatial": 2, "zero": 3}
+        with pytest.raises(ValueError, match="must divide the device count"):
+            Trainer(cfg, data_cfg, **kw)
+    for part, name in (("backbone", "vision_transformer"),
+                       ("backbone", "swin_transformer"), ("neck", "none")):
         for parallel in ({"model": 2}, {"spatial": 2}):
             cfg = copy.deepcopy(model_cfg)
             cfg[part] = {**cfg[part], "name": name}
             cfg["parallel"] = parallel
             with pytest.raises(NotImplementedError,
-                               match=f"{part} '{name}'.*item 12c"):
+                               match=f"{part} '{name}'.*item 12c.4 part 3"):
                 Trainer(cfg, data_cfg, **kw)
     for variant in FAMILIES:
         cfg = _cfg(variant)
         cfg["parallel"] = {"model": 2, "pipeline": 2}
-        with pytest.raises(NotImplementedError, match="`pipeline`.*12c"):
+        with pytest.raises(NotImplementedError,
+                           match="`pipeline`.*item 12c.5"):
             Trainer(cfg, data_cfg, **kw)
     model_cfg["parallel"] = {"model": 2, "pipeline": 2}
     with pytest.raises(NotImplementedError, match="`pipeline`.*item 12c"):
@@ -1373,6 +1612,12 @@ def test_parallel_checks_name_the_jax_messages(monkeypatch, tmp_path):
     data_cfg["dataset"]["train_size"] = [96, 96]
     with pytest.raises(ValueError, match="divisible by 32\\*2"):
         Trainer(model_cfg, data_cfg, **kw)
+    # the registry's other conv backbones reach the same check
+    for variant in ("convnext", "mobilenetv3s"):
+        cfg = _cfg(variant)
+        cfg["parallel"] = {"model": 2, "spatial": 2}
+        with pytest.raises(ValueError, match="divisible by 32\\*2"):
+            Trainer(cfg, data_cfg, **kw)
     data_cfg["dataset"]["train_size"] = [SIZE, SIZE]
     data_cfg["dataset"]["train_batch_size"] = 3
     model_cfg["parallel"] = {"spatial": 2}
@@ -1394,6 +1639,60 @@ def test_sharded_modules_refuse_to_run_outside_a_layout():
     p = {k: (v[:2] if k != "moe_router" else v) for k, v in p.items()}
     with pytest.raises(RuntimeError, match="holds 2 of 4 experts"):
         moe_ffn(p, y, 0.5)
+
+
+def test_same_convs_and_se_convs_refuse_to_run_sharded_outside_a_layout():
+    """ConvNeXt's `SameConv2d` and the squeeze-excites' bare 1x1 convs
+    (ShuffleNetV2's `SELayer`, GhostNet's `se_fc*`) holding a cout slice
+    run only inside a train step's layout, as the other sharded convs."""
+    from pl_yolo_tpu_torch.models.backbones import extras, shufflenetv2
+    spec = tensor.Shard(0, None, 1, 2)
+
+    def cut(conv):
+        conv.weight.data = spec.narrow(conv.weight.data).clone()
+        assert tensor.is_sharded(conv)
+    same = blocks.SameConv2d(4, 8, 7, groups=4)
+    se = shufflenetv2.SELayer(8)
+    ghost = extras.GhostBottleneck(8, 8, 8, use_se=True)
+    for module, conv in ((same, same), (se, se.fc1), (ghost, ghost.se_fc2)):
+        cut(conv)
+        with pytest.raises(RuntimeError,
+                           match="inside a train step's layout"):
+            module(torch.zeros(1, 8 if module is not same else 4, 4, 4))
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_bridged_state_cuts_to_each_ranks_slices(runs, rank):
+    """`tensor.shard_state_dict` of the state the bridge makes of the
+    flax tree of ConvNeXt's one-process init is, bit for bit, what each
+    rank of model 2 x spatial 2 holds after the engine sliced its module:
+    its `SameConv2d` kernels (the patchify stem, the downsamples, the 7x7
+    depthwise) cut on cout, its `nn.Linear` layers and every 1-D tensor
+    whole."""
+    from types import SimpleNamespace
+    from pl_yolo_tpu_torch import bridge
+    init = runs["one"]["f64"]["convnext"]["init"]
+    module = build_model(_cfg("convnext"), NUM_CLASSES, device="cpu",
+                         input_size=(SIZE, SIZE)).module.double()
+    bridged = bridge.variables_to_state_dict(
+        bridge.state_dict_to_variables(init, module), module)
+    res = runs["ranks"][rank]
+    layout = SimpleNamespace(model=2, expert=1, model_group=None,
+                             model_index=res["index/model2_spatial2"][
+                                 "model"])
+    cut = tensor.shard_state_dict(bridged,
+                                  tensor.shard_specs(module, layout))
+    held = res["f64/convnext_model2_spatial2"]["held_init"]
+    assert set(cut) == set(held)
+    for k, v in held.items():
+        assert torch.equal(cut[k].to(v.dtype), v), (rank, k)
+    for k in ("backbone.stem.weight", "backbone.down2.weight",
+              "backbone.stage1_b0.dwconv.weight"):
+        assert held[k].shape[0] * 2 == init[k].shape[0], k
+    for k in ("backbone.stage1_b0.pwconv1.weight",
+              "backbone.stage1_b0.pwconv2.weight", "backbone.stem.bias",
+              "backbone.stage1_b0.gamma"):
+        assert held[k].shape == init[k].shape, k
 
 
 def test_spec_rules_follow_the_jax_ones():

@@ -243,10 +243,11 @@ def test_unported_config_keys_raise_naming_their_item():
     model, spatial and expert axes, remat under tensor and spatial
     parallelism and DropBlock under spatial, depthwise convs under tensor
     parallelism, and tensor and spatial parallelism on the YOLOv7, YOLOv5
-    and e-YOLOX families (part 1 of item 12c.4). What is left of item 12c
-    raises naming it: a pipe width with a model, spatial or expert width,
-    and tensor or spatial parallelism on the transformer backbones,
-    MobileNetV3, ShuffleNetV2, CSPMobileNext and the extras."""
+    and e-YOLOX families (part 1 of item 12c.4) and on MobileNetV3,
+    ShuffleNetV2, CSPMobileNext and the extras (part 2). What is left of
+    item 12c raises naming it: a pipe width with a model, spatial or
+    expert width (12c.5), and tensor or spatial parallelism on the
+    transformer backbones and `neck: none` (12c.4 part 3)."""
     yolox = {k: _model_cfg()[k] for k in ("backbone", "neck", "head")}
     for key in ("model", "spatial", "expert"):
         check_ported({**yolox, "parallel": {key: 2}}, {})
@@ -294,16 +295,18 @@ def test_unported_config_keys_raise_naming_their_item():
                                                "pipeline": 2}}, {})
     for name in ("swin_tiny", "restv2_tiny", "mctformer_small"):
         cfg = load_config(CONFIG_DIR / "model" / f"{name}.yaml")
-        with pytest.raises(NotImplementedError, match="item 12c"):
+        with pytest.raises(NotImplementedError, match="item 12c.4 part 3"):
             check_ported({**cfg, "parallel": {"spatial": 2}}, {})
-    for backbone in ("mobilenetv3l", "shufflenetv2", "cspmobilenext",
-                     "efficientrep", "resnet", "convnext", "ghostnet", "vgg",
-                     "mobilenext"):
+    for backbone in ("mobilenetv3s", "mobilenetv3l", "shufflenetv2",
+                     "cspmobilenext", "efficientrep", "resnet", "convnext",
+                     "ghostnet", "vgg", "mobilenext"):
         cfg = {**yolox, "backbone": {"name": backbone}}
-        for parallel in ({"model": 2}, {"spatial": 2}):
-            with pytest.raises(NotImplementedError,
-                               match=f"backbone '{backbone}'.*12c"):
-                check_ported({**cfg, "parallel": parallel}, {})
+        for parallel in ({"model": 2}, {"spatial": 2},
+                         {"model": 2, "spatial": 2, "zero": 3}):
+            check_ported({**cfg, "parallel": parallel}, {})
+        with pytest.raises(NotImplementedError, match="`pipeline`.*12c.5"):
+            check_ported({**cfg, "parallel": {"model": 2,
+                                               "pipeline": 2}}, {})
 
 
 def _cli_files(root, tmp_path):
